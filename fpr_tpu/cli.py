@@ -9,8 +9,8 @@ The structured replacement for the reference's positional-ARGS entry points
     python -m fpr_tpu mg --k 12 --l 2 --coarse jacobi --solver mixed
     python -m fpr_tpu bench
 
-``--platform cpu`` forces the CPU backend (the reference's cpu/gpu switch;
-on TPU machines the default backend is the TPU).
+``--platform cpu|gpu`` picks the backend (the reference's cpu/gpu switch);
+without it JAX uses its default backend, the GPU where one is present.
 """
 
 from __future__ import annotations
@@ -20,16 +20,21 @@ import json
 import sys
 
 
+# --platform value -> JAX platforms; the CPU stays available beside the GPU
+# for host callbacks (jax.debug.print in the non-convergence warnings)
+PLATFORMS = {"cpu": "cpu", "gpu": "cuda,cpu"}
+
+
 def _force_platform(platform: str | None):
     import jax
 
     if platform:
-        jax.config.update("jax_platforms", platform)
+        jax.config.update("jax_platforms", PLATFORMS[platform])
 
 
 def _add_common(p):
-    p.add_argument("--platform", choices=["cpu", "tpu"], default=None)
-    p.add_argument("--f64", action="store_true", help="use float64 (emulated on TPU)")
+    p.add_argument("--platform", choices=sorted(PLATFORMS), default=None)
+    p.add_argument("--f64", action="store_true", help="use float64")
 
 
 def cmd_diffusion3d(args):
@@ -47,9 +52,6 @@ def cmd_diffusion3d(args):
     from fpr_tpu.parallel.mesh import make_mesh
 
     policy = ExecutionPolicy(args.policy)
-    if args.f64 and policy is ExecutionPolicy.PALLAS and jax.default_backend() == "tpu":
-        print("note: Mosaic has no f64; using the jnp tier for --f64 on TPU")
-        policy = ExecutionPolicy.JNP
     if policy is ExecutionPolicy.PALLAS_DS:
         jax.config.update("jax_enable_x64", True)
     cfg = DiffusionConfig(
@@ -89,8 +91,8 @@ def cmd_ns(args):
     from fpr_tpu.core.config import ExecutionPolicy, MGConfig, NSConfig
     from fpr_tpu.models import navier_stokes as ns
 
-    # --fast ignores --policy (the fast tier's solver is mg_solve_ds_rp,
-    # always Pallas): leave cfg.mg at the default so fast_mg_default can
+    # --fast ignores --policy (the fast tier's solver is mg_solve_ds_rp on
+    # the fused legs): leave cfg.mg at the default so fast_mg_default can
     # upgrade it to the production DST-257/V(3,3) ladder.  Setting
     # MGConfig(policy=...) here would make it look explicitly provided.
     mg = MGConfig() if args.fast else MGConfig(policy=ExecutionPolicy(args.policy))
@@ -171,7 +173,7 @@ def cmd_mg(args):
                          "reads the final post-smooth's residual norm)")
     if args.solver == "ds" and args.smooths > 6:
         raise SystemExit("--solver ds supports --smooths 1..6 (the fused "
-                         "stk kernels recompute at most PAD-2 = 6 sweeps "
+                         "legs recompute at most PAD-2 = 6 sweeps "
                          "inside one 8-row halo; deeper smoothing would "
                          "silently fall off the fused path"
                          + (", and the sharded tier's one-exchange-per-leg "
@@ -246,6 +248,9 @@ def cmd_bench(args):
 
 
 def main(argv=None):
+    from fpr_tpu.utils.runtime import enable_compile_cache
+
+    enable_compile_cache()
     ap = argparse.ArgumentParser(prog="fpr_tpu")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
@@ -256,12 +261,12 @@ def main(argv=None):
     p.add_argument("--tol", type=float, default=1e-8)
     p.add_argument(
         "--policy", choices=["jnp", "pallas", "pallas_ds"], default="pallas",
-        help="pallas_ds: double-single (~48-bit) kernel tier for tolerances "
-        "below the f32 floor",
+        help="pallas_ds: double-single (~48-bit) tier for tolerances below "
+        "the f32 floor",
     )
     p.add_argument(
         "--check-every", type=int, default=1,
-        help="pallas only: fuse K pseudo-time iterations per HBM pass "
+        help="pallas only: K pseudo-time iterations per step call "
         "(convergence checked every K); K=3 is the 512^3 headline config",
     )
     p.add_argument("--devices", type=int, default=1)
@@ -285,8 +290,8 @@ def main(argv=None):
     p.add_argument("--snapshot-every", type=int, default=0)
     p.add_argument(
         "--fast", action="store_true",
-        help="fused-kernel on-device-loop path (simulate_fast): f32 state, "
-        "double-single multigrid — the TPU production configuration",
+        help="fused on-device-loop path (simulate_fast): f32 state, "
+        "double-single multigrid — the production configuration",
     )
     p.add_argument(
         "--no-mg-auto", action="store_true",
@@ -312,7 +317,7 @@ def main(argv=None):
     p.add_argument("--l", type=int, default=2, help="coarse grid is (2^l+1)^2")
     p.add_argument(
         "--coarse", choices=["jacobi", "cg", "dst"], default="jacobi",
-        help="coarse-grid solver; 'dst' = exact MXU sine-transform solve "
+        help="coarse-grid solver; 'dst' = exact sine-transform solve "
         "(pair with --l 9 for the DST-513 truncated ladder, the benchmark "
         "headline configuration)",
     )
@@ -320,26 +325,25 @@ def main(argv=None):
     p.add_argument(
         "--solver", choices=["direct", "mixed", "ds"], default="direct",
         help="direct: single-precision-path mg_solve; mixed: f64 defect "
-        "correction around f32 Pallas V-cycles; ds: all-f32 double-single "
+        "correction around f32 fused V-cycles; ds: all-f32 double-single "
         "defect correction (the benchmark headline path)",
     )
     p.add_argument(
         "--devices", type=int, default=1,
         help="with --solver ds: row-shard the solve over a 1D device mesh "
-        "(solvers/dist_mg_ds — grids beyond one chip's HBM)",
+        "(solvers/dist_mg_ds — grids beyond one card's memory)",
     )
     p.add_argument(
         "--mesh", type=str, default=None, metavar="YxX",
         help="with --devices N: decompose over a 2D (y, x) device mesh "
-        "instead of rows-only, e.g. --devices 8 --mesh 4x2 (128-lane "
-        "ghost-column slabs; avoids the thin-slab limit at high device "
-        "counts)",
+        "instead of rows-only, e.g. --devices 8 --mesh 4x2 (128-column "
+        "ghost slabs; avoids the thin-slab limit at high device counts)",
     )
     p.add_argument(
         "--smooths", type=int, default=2,
-        help="pre/post smooth sweeps per V-cycle leg (deep smoothing is "
-        "~free on the DMA-bound fused kernels; 4-5 is the measured "
-        "production choice for the ds tier, 2 the reference parity)",
+        help="pre/post smooth sweeps per V-cycle leg (deeper smoothing "
+        "cuts outer iterations; 5 is the benchmark's ds-tier choice, 2 the "
+        "reference parity)",
     )
     p.set_defaults(fn=cmd_mg)
 

@@ -1,6 +1,6 @@
 """Static configuration for solvers and models.
 
-These are the TPU-framework analogs of the reference's config surfaces:
+These are the analogs of the reference's config surfaces:
 ``MGOpt`` (reference scripts-part2/multigrid.jl:16-22), ``SimIn_t``
 (scripts-part2/part2.jl:30-46), the ``ExecutionPolicy_t`` /
 ``CoarseSolver_t`` enums (scripts-part2/part2_utils.jl:4-8,
@@ -22,15 +22,15 @@ class ExecutionPolicy(enum.Enum):
     """How the stencil operator tier executes.
 
     The reference's tiers (part2_utils.jl:4-8) are serial / parallel /
-    parallel_shmem.  On TPU the analogous tiers are:
+    parallel_shmem.  The analogous tiers here:
 
-    - JNP: plain jitted jnp ops, XLA-fused ("array programming" tier).
-    - PALLAS: fused hand-written Pallas kernels with VMEM blocking (the
-      "kernel programming with shared memory" tier — VMEM blocks play the
-      role of CUDA shared memory).
-    - PALLAS_DS: the Pallas kernels on double-single (two-f32, ~48-bit)
-      state — f64-class tolerances at near-f32 speed (TPUs have no native
-      f64; XLA emulation is ~30x slower than this tier at 128^3).
+    - JNP: plain jitted jnp ops on the physical arrays ("array
+      programming" tier).
+    - PALLAS: the fused steps of fpr_tpu.ops.pallas2d/pallas3d on padded
+      state (the "kernel programming" tier; the name is historical — the
+      bodies are plain jnp that XLA fuses).
+    - PALLAS_DS: the fused steps on double-single (two-f32, ~48-bit)
+      state — f64-class tolerances in f32 arithmetic.
     """
 
     JNP = "jnp"
@@ -41,8 +41,8 @@ class ExecutionPolicy(enum.Enum):
 class CoarseSolver(enum.Enum):
     """Coarse-grid solver for the multigrid V-cycle (multigrid.jl:10-13).
 
-    DST is beyond-reference and TPU-first: an *exact* solve by dense
-    sine-transform matmuls on the MXU (fpr_tpu.solvers.dst), replacing the
+    DST is beyond-reference: an *exact* solve by dense sine-transform
+    matmuls (fpr_tpu.solvers.dst), replacing the
     reference's sequential Jacobi/CG coarse iteration — and, with a large
     ``coarse_size`` (129-513), the entire small-level subtree whose
     dispatch latency dominates small-grid MG solves.
@@ -59,7 +59,7 @@ class Smoother(enum.Enum):
     The reference uses damped Jacobi (alpha=4/5) everywhere
     (multigrid.jl:245-258) and keeps a serial Gauss-Seidel for debugging
     (multigrid.jl:269-297).  We additionally provide red-black Gauss-Seidel,
-    which parallelizes on TPU via two masked half-sweeps.
+    which parallelizes as two masked half-sweeps.
     """
 
     JACOBI = "jacobi"
@@ -145,8 +145,8 @@ class NSConfig:
     # provided ``mg`` always wins regardless of this flag.
     mg_auto: bool = True
     # "direct": mg_solve in the simulation dtype; "mixed": f64 defect
-    # correction around f32 Pallas V-cycles (the TPU path for tight
-    # tolerances on large grids — f32 alone can't represent the residual)
+    # correction around f32 fused V-cycles (tight tolerances on large
+    # grids — f32 alone can't represent the residual)
     mg_solver: str = "direct"
     # simulate_fast only: relax the STREAMFUNCTION solve's tolerance to
     # s_tol_factor * tol * rms(W) (T/W Helmholtz solves keep tol).  The

@@ -6,8 +6,8 @@ column-major (ix, iy[, iz]) layout): arrays are row-major with **x last**, so
 - 2D fields have shape ``(ny, nx)`` and are indexed ``[iy, ix]``;
 - 3D fields have shape ``(nz, ny, nx)`` and are indexed ``[iz, iy, ix]``.
 
-x-last keeps the widest dimension on TPU lanes (NS grids are wide in x,
-e.g. 257x65 -> shape (65, 257)), which maps onto the (8, 128) VPU tiles.
+x-last keeps the widest dimension contiguous in memory (NS grids are wide in x,
+e.g. 257x65 -> shape (65, 257)).
 
 Multigrid grids are logically (2^k + 1) per side (reference
 multigrid.jl:91-97); anisotropic rectangles (lambda*2^k + 1) are supported

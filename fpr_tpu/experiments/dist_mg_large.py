@@ -1,16 +1,13 @@
-"""Beyond-one-chip multigrid: solve a grid that cannot fit a single TPU's
-HBM by sharding the production ds solver over a device mesh.
+"""Beyond-one-card multigrid: a grid too large for one card's memory,
+solved by sharding the production ds solver over the devices present.
 
-The motivation row for the distributed production tier (dist_mg_ds.py):
-at k = 15 the 32769^2 solver state is ~21 GB of f32 — more than a v5e's
-16 GB HBM — so the reference's single-GPU part-2 design (multigrid.jl:41-
-170) cannot scale there at all, while ``mg_solve_ds_sharded`` runs it as
-soon as >= 2 chips are meshed.  Real multi-chip hardware is not available
-in this environment, so the committed artifact runs the identical sharded
-program on a virtual CPU mesh (the same validation strategy as
-tests/test_dist_mg.py, which proves shard-count-invariant iteration parity
-and <= 1e-6 field agreement at 2049^2/4097^2): the XLA program, collectives
-and per-shard memory footprint are exactly what a TPU mesh would execute.
+The motivation row for the distributed production tier (dist_mg_ds.py): at
+k = 15 the 32769^2 solver state is ~21 GB of f32, and k = 16 four times
+that, so the reference's single-GPU part-2 design (multigrid.jl:41-170)
+runs out of memory where ``mg_solve_ds_sharded`` spreads the state over a
+row (or 2D) mesh.  The run needs at least --devices devices; to rehearse
+the sharded program without cards, give the CPU virtual devices
+(XLA_FLAGS=--xla_force_host_platform_device_count=N, JAX_PLATFORMS=cpu).
 
     python -m fpr_tpu.experiments.dist_mg_large --k 15 --devices 4
 
@@ -38,25 +35,13 @@ def main():
     ap.add_argument("--out", default="benchmark-results/dist_mg_large.csv")
     args = ap.parse_args()
 
-    import os
-
-    # virtual mesh on the host: same sharded program a TPU pod would run
-    # (env before import, config update after — the proven conftest pattern)
-    os.environ["JAX_PLATFORMS"] = "cpu"
-    flags = os.environ.get("XLA_FLAGS", "")
-    if "xla_force_host_platform_device_count" not in flags:
-        flags += f" --xla_force_host_platform_device_count={args.devices}"
-    # one host core timeslices all virtual devices: a >=k=13 shard's leg
-    # takes minutes, so the default 40 s collective rendezvous terminate
-    # timeout kills the run (observed at k=15) — raise both timeouts
-    flags += (
-        " --xla_cpu_collective_call_warn_stuck_timeout_seconds=600"
-        " --xla_cpu_collective_call_terminate_timeout_seconds=3600"
-    )
-    os.environ["XLA_FLAGS"] = flags.strip()
     import jax
 
-    jax.config.update("jax_platforms", "cpu")
+    if len(jax.devices()) < args.devices:
+        raise SystemExit(
+            f"--devices {args.devices} needs that many devices; JAX sees "
+            f"{len(jax.devices())} ({jax.devices()[0].platform})"
+        )
     import jax.numpy as jnp
     import numpy as np
 
@@ -101,7 +86,7 @@ def main():
     rel = float(np.sqrt((res**2).mean()) / np.sqrt((np.asarray(b, np.float64) ** 2).mean()))
 
     # fine-level per-shard solver state (u_ds + f + E/r temporaries), the
-    # number that must fit one chip's HBM
+    # number that must fit one card's memory
     state_gb = round(n * n * 4 * 5 / args.devices / 2**30, 2)
     peak_gb = round(
         resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20, 1
@@ -114,7 +99,7 @@ def main():
         mesh=args.mesh or f"{args.devices}x1", iters=int(iters),
         claimed_rms=float(r_rms), true_rel_residual=rel,
         wall_s=round(wall, 1), shard_state_gb=state_gb,
-        host_peak_gb=peak_gb, backend="cpu-virtual",
+        host_peak_gb=peak_gb, backend=jax.default_backend(),
     )
     print(row, flush=True)
     assert rel < 2 * args.tol, f"not converged: {rel}"

@@ -23,8 +23,8 @@ def main():
     ap.add_argument("--max-steps", type=int, default=100000)
     ap.add_argument(
         "--solver", choices=["direct", "mixed", "fast"], default="direct",
-        help="'fast' = simulate_fast (fused operator kernel, on-device "
-        "while_loop, double-single MG solves — the TPU production path)",
+        help="'fast' = simulate_fast (fused operator pass, on-device "
+        "while_loop, double-single MG solves — the production path)",
     )
     ap.add_argument("--Pr", type=float, default=None, help="single-Pr run")
     ap.add_argument(

@@ -40,8 +40,7 @@ def main():
     if args.mode == "tol" and not args.f64:
         # the sweep reaches tol=1e-10 (part1_error_vs_tolerance_experiments
         # .jl:25), far below the f32 residual floor: use the double-single
-        # Pallas tier (f64-class accuracy at near-f32 speed; XLA-emulated
-        # f64 measures ~30x slower at 128^3)
+        # tier (f64-class accuracy in f32 arithmetic)
         jax.config.update("jax_enable_x64", True)
         policy = ExecutionPolicy.PALLAS_DS
 

@@ -2,9 +2,9 @@
 of part1_scaling_experiments.jl (strong: fixed 128^3 global grid split over
 shards; weak: 128^3 per shard with physical-size scaling; SOLVER_TOL=1e-6).
 
-On a single-chip machine this degenerates to the 1-device row; with
---virtual N it runs on N virtual CPU devices (validates the sharding, not
-the performance).
+Runs the production (fused, PALLAS) tier on the devices present; with
+--virtual N it runs on N virtual CPU devices instead (validates the
+sharding, not the performance).
 
     python -m fpr_tpu.experiments.part1_scaling --mode weak --devices 4
 """
@@ -46,7 +46,7 @@ def main():
     n_dev = args.devices or len(jax.devices())
     mesh = make_mesh((n_dev,), ("z",))
     backend = jax.default_backend()
-    policy = ExecutionPolicy.PALLAS if backend == "tpu" else ExecutionPolicy.JNP
+    policy = ExecutionPolicy.PALLAS
 
     if args.mode == "strong":
         if args.n % n_dev:

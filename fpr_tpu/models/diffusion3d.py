@@ -1,6 +1,6 @@
 """3D pseudo-transient ("dual-time") diffusion to steady state.
 
-TPU-native rebuild of the reference part 1
+A rebuild of the reference part 1
 (diffusion_3D_kernel_programming / _array_programming,
 part1_kernel_programming.jl:99-228): each physical backward-Euler step of
 
@@ -12,17 +12,18 @@ R = (H_tau - H_t)/dt - D nabla^2 H_tau, iterated until
 
 Design vs the reference:
 - the inner pseudo-time loop is an on-device ``lax.while_loop`` whose
-  convergence norm is computed by the same fused kernel that does the
+  convergence norm is computed by the same fused step that does the
   update — the reference launches a kernel, then a separate device-wide
   reduction + host sync *every iteration* (part1_kernel_programming.jl:191);
 - one host sync per *physical* step (to read the iteration count), which is
   also where the reference syncs for timing;
 - the "array" vs "kernel(+shmem)" variants of the reference map to the
-  ExecutionPolicy: JNP (XLA-fused jnp ops) vs PALLAS (hand-fused VMEM-tiled
-  kernel).  Both share this driver and are bit-compatible in f64.
+  ExecutionPolicy: JNP (stencil3d on the physical array) vs PALLAS (the
+  fused step of fpr_tpu.ops.pallas3d on ghost-padded state, K iterations
+  per call with check_every=K).  Both share this driver and agree in f64.
 
-The distributed (multi-chip) variant lives in
-fpr_tpu.parallel.diffusion_dist and shards this exact step over a device
+The distributed (multi-device) variant lives in
+fpr_tpu.parallel.dist_diffusion and shards this exact step over a device
 mesh with ppermute halo exchange.
 """
 
@@ -60,7 +61,7 @@ def _step_fn(cfg: DiffusionConfig, grid: Grid3D, total_n: int):
     pallas = cfg.policy == ExecutionPolicy.PALLAS
     ds_tier = cfg.policy == ExecutionPolicy.PALLAS_DS
     K = cfg.check_every if pallas else 1
-    fused2 = pallas and K >= 2  # temporally-fused K-iteration kernel
+    fused2 = pallas and K >= 2  # K iterations per step call
     shape = (cfg.nz, cfg.ny, cfg.nx)
     if ds_tier:
         from fpr_tpu.ops import ds3d
@@ -71,8 +72,7 @@ def _step_fn(cfg: DiffusionConfig, grid: Grid3D, total_n: int):
         from fpr_tpu.ops import pallas3d
 
         # stacked-state variant: Htau (plane-set 0) and Ht (plane-set 1) in
-        # one array; the kernel's output aliases its input, so Ht and the
-        # ghost planes persist with zero traffic
+        # one array, updated in place; Ht and the ghost planes persist
         def step(Ht_unused, state):
             return pallas3d.dual_time_stepk_stacked(state, shape, K=K, **kw)
     elif pallas:
@@ -87,8 +87,8 @@ def _step_fn(cfg: DiffusionConfig, grid: Grid3D, total_n: int):
     iters_per_call = K if fused2 else 1
 
     def physical_step(Ht, Htau):
-        # Htau is ghost/tile-padded under the Pallas policies (the fused
-        # kernel's native state layout), physical-shaped otherwise; under
+        # Htau is ghost-padded under the PALLAS policies (the fused step's
+        # state layout), physical-shaped otherwise; under
         # PALLAS_DS both carries are stacked hi/lo pairs already in layout
         if pallas and not fused2:
             from fpr_tpu.ops import pallas3d
@@ -114,7 +114,7 @@ def _step_fn(cfg: DiffusionConfig, grid: Grid3D, total_n: int):
              jnp.asarray(0, jnp.int32)),
         )
         if ds_tier:
-            Ht_new = Htau[:, 1 : 1 + cfg.nz]  # ds pair, kernel-ht layout
+            Ht_new = Htau[:, 1 : 1 + cfg.nz]  # ds pair, Ht layout
         elif fused2:
             # commit Ht <- Htau inside the stacked state (one copy per
             # physical step); both carries are the committed state
@@ -156,7 +156,7 @@ def solve(
         from fpr_tpu.ops import ds3d
 
         Htau = ds3d.to_ds_padded(Ht)
-        Ht = Htau[:, 1 : 1 + cfg.nz]  # kernel-ht layout, ds pair
+        Ht = Htau[:, 1 : 1 + cfg.nz]  # Ht layout, ds pair
     elif fused2:
         from fpr_tpu.ops import pallas3d
 
@@ -182,8 +182,8 @@ def solve(
         n_it = int(iters)  # host sync, once per physical step
         iters_total += n_it
         timed_iters += n_it
-        # convergence is err <= tol, NOT the iteration count: with the fused
-        # kernel (iters_per_call=2) the loop can exit at it == iter_max + 1
+        # convergence is err <= tol, NOT the iteration count: with K
+        # iterations per call the loop can exit past iter_max
         # having actually converged on its final fused call
         if not (float(err) <= cfg.tol):
             converged = False

@@ -1,30 +1,25 @@
-"""Double-single (two-float32) arithmetic + the fused defect-correction
-kernel for mixed-precision multigrid.
+"""Double-single (two-float32) arithmetic and the fused defect pass of the
+mixed-precision multigrid.
 
-Why this exists: TPUs have no native f64 (XLA emulates it in software —
-measured 4.2 ms for one 4097^2 residual pass vs ~1 ms of equivalent f32
-traffic), but plain f32 cannot evaluate the residual r = A u - f on fine
-grids: the 5-point numerator cancels catastrophically and the f32 rounding
-floor eps*8|u|/h^2 sits orders of magnitude above tol*rms(f) (CLAUDE.md,
-round-1 measurements).  A double-single representation u ~ hi + lo with
-|lo| <= ulp(hi)/2 carries ~48 mantissa bits — enough for tol 1e-6 at the
-reference's largest grid (16385^2, h^2 = 3.7e-9) — while every operation
-runs at native f32 VPU speed inside a Pallas kernel.
+Why this exists: plain f32 cannot evaluate the residual r = A u - f on
+fine grids — the 5-point numerator cancels catastrophically and the f32
+rounding floor eps*8|u|/h^2 sits orders of magnitude above tol*rms(f).  A
+double-single representation u ~ hi + lo with |lo| <= ulp(hi)/2 carries
+~48 mantissa bits — enough for tol 1e-6 at the reference's largest grid
+(16385^2, h^2 = 3.7e-9) — while every operation stays in f32.
 
 The error-free transformations are the classical ones (Dekker 1971, Knuth
 TAOCP v2): two_sum, quick_two_sum, Veltkamp split + Dekker product.  They
-rely on IEEE-exact single ops; XLA/Mosaic lower jnp ops 1:1 without
-reassociation, which tests/test_ds.py verifies on every backend.
+rely on IEEE-exact single operations with no reassociation or contraction
+into fused multiply-adds; tests/test_ds.py checks exactness on the CPU and
+chip_smoke.py on the GPU.
 
-The fused kernel (one HBM pass per outer defect-correction iteration):
+The defect pass (one pass per outer defect-correction iteration):
 
     u'  = u - scale * e          (ds update; e is the f32 V-cycle output)
     r   = (u'_E + u'_W + u'_N + u'_S - C u') / h^2 - f    (ds stencil)
-    acc += sum(r_hi^2)           (the TRUE defect norm, not an estimate)
+    acc = sum(r_hi^2)            (the TRUE defect norm, not an estimate)
     out: u' (hi, lo planes), r_hi (the next V-cycle's rhs)
-
-replacing, per outer iteration, an XLA-emulated f64 residual + rms + axpy +
-cast + pad chain (~11 ms at 4097^2) with ~2 ms of f32 work.
 
 Reference provenance: the outer loop this accelerates is MGsolve_2DPoisson!
 (multigrid.jl:41-84); the residual definition matches residual_2DPoisson!
@@ -33,24 +28,19 @@ Reference provenance: the outer loop this accelerates is MGsolve_2DPoisson!
 
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from fpr_tpu.ops.pallas2d import (
-    LANE,
-    PAD,
-    _im32,
-    _on_tpu,
-    padded_cols,
-    padded_rows,
+    block_rows,
+    block_sumsq,
+    global_coords,
+    interior_mask,
+    shift_cols,
+    shift_rows,
 )
 
 # ---------------------------------------------------------------------------
-# error-free transformations (work under jnp and inside Pallas kernels)
+# error-free transformations
 # ---------------------------------------------------------------------------
 
 
@@ -142,467 +132,75 @@ def _is_pow2(x: float) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# fused defect kernel
+# defect pass
 # ---------------------------------------------------------------------------
 
 
-def _defect_kernel(
-    scal_ref, u_hbm, f_hbm, e_hbm, uout_hbm, r32_hbm, acc_ref,
-    uslabs, fbufs, ebufs, ures, rres, sem_u, sem_f, sem_e, sem_uo, sem_r,
-    *, BR, ny, nx, nxp, inv_h2, c_zero, with_update, apply_bcs, f_single,
-    velocity_max, field_sumsq, inv2h, stk_e=False, own_lanes=None,
-):
-    """One grid step: ds update + ds residual + norm on a BR-row block.
-
-    scal_ref (SMEM, (4, 1)): [scale, C_hi, C_lo, row_off] (row_off is the
-    shard's global row offset — 0 single-device, traced in the distributed
-    solver; exact in f32 <= 2^24).
-    u_hbm: (2, total, nxp) hi/lo planes.  f_hbm: (2, total, nxp) hi/lo, or
-    (1, total, nxp) when f_single (an exactly-f32 rhs, e.g. the NS rhs
-    builds — skips the lo plane's traffic and arithmetic).
-    e_hbm: (total, nxp) f32.
-    apply_bcs: apply the NS temperature BCs (Dirichlet bottom/top, Neumann
-    sides, Neumann winning at corners — part2_utils.jl:22-25) to u after
-    the correction and before the residual, mirroring mg_solve_mixed's
-    per-outer-iteration BC application.
-    inv_h2 must be an exact power of two (asserted by the builder) so the
-    1/h^2 scaling is exact in both components.
-    """
-    i = pl.program_id(0)
-    n_blocks = pl.num_programs(0)
-    slot = jax.lax.rem(i, jnp.asarray(2, i.dtype))
-    nslot = 1 - slot
-    S = 3 if stk_e else 2  # u slots: race-close needs a step of lead time
-    uslot = jax.lax.rem(i, jnp.asarray(S, i.dtype))
-    E = BR + 2 * PAD
-
-    def _i32(v):
-        return jnp.asarray(v, jnp.int32)
-
-    def copy_u(block):
-        block = _i32(block)
-        s = jax.lax.rem(block, jnp.asarray(S, jnp.int32))
-        return pltpu.make_async_copy(
-            u_hbm.at[:, pl.ds(block * BR, E), :], uslabs.at[s], sem_u.at[s]
-        )
-
-    def copy_f(block, s):
-        block, s = _i32(block), _i32(s)
-        # f_hbm is (1, total, nxp) when f_single, (2, total, nxp) otherwise
-        return pltpu.make_async_copy(
-            f_hbm.at[:, pl.ds(block * BR + PAD, BR), :], fbufs.at[s], sem_f.at[s]
-        )
-
-    def copy_e(block, s):
-        block, s = _i32(block), _i32(s)
-        if stk_e:
-            # e = plane 0 of the stacked level state
-            src = e_hbm.at[pl.ds(_i32(0), 1), pl.ds(block * BR, E), :]
-        else:
-            src = e_hbm.at[pl.ds(block * BR, E), :]
-        return pltpu.make_async_copy(src, ebufs.at[s], sem_e.at[s])
-
-    def copy_uo(block, s):
-        block, s = _i32(block), _i32(s)
-        return pltpu.make_async_copy(
-            ures.at[s], uout_hbm.at[:, pl.ds(block * BR + PAD, BR), :], sem_uo.at[s]
-        )
-
-    def copy_r(block, s):
-        block, s = _i32(block), _i32(s)
-        if stk_e:
-            # the new defect goes into plane 1 of the aliased level state
-            dst = r32_hbm.at[pl.ds(_i32(1), 1), pl.ds(block * BR + PAD, BR), :]
-        else:
-            dst = r32_hbm.at[pl.ds(block * BR + PAD, BR), :]
-        return pltpu.make_async_copy(rres.at[s], dst, sem_r.at[s])
-
-    if stk_e:
-        # u_out is ALIASED onto u: the u' write of block i overlaps block
-        # i+1's slab read by PAD rows, so input i+1 must be awaited before
-        # output i starts (issued S-1 steps ahead — the wait is free)
-        @pl.when(i == 0)
-        def _():
-            copy_u(0).start()
-            copy_f(0, 0).start()
-            copy_e(0, 0).start()
-            copy_u(0).wait()
-            for k in range(1, S):
-                @pl.when(n_blocks > k)
-                def _(k=k):
-                    copy_u(k).start()
-
-        @pl.when(jnp.logical_and(i > 0, i + S - 1 < n_blocks))
-        def _():
-            copy_u(i + S - 1).start()
-
-        @pl.when(jnp.logical_and(i > 0, i + 1 < n_blocks))
-        def _():
-            copy_f(i + 1, nslot).start()
-            copy_e(i + 1, nslot).start()
-
-        @pl.when(jnp.logical_and(i == 0, n_blocks > 1))
-        def _():
-            copy_f(1, 1).start()
-            copy_e(1, 1).start()
-
-        copy_f(i, slot).wait()
-        copy_e(i, slot).wait()
-    else:
-        @pl.when(i == 0)
-        def _():
-            copy_u(0).start()
-            copy_f(0, 0).start()
-            if with_update:
-                copy_e(0, 0).start()
-
-        @pl.when(i + 1 < n_blocks)
-        def _():
-            copy_u(i + 1).start()
-            copy_f(i + 1, nslot).start()
-            if with_update:
-                copy_e(i + 1, nslot).start()
-
-        copy_u(i).wait()
-        copy_f(i, slot).wait()
-        if with_update:
-            copy_e(i, slot).wait()
-
-    @pl.when(i >= 2)
-    def _():
-        copy_uo(i - 2, slot).wait()
-        copy_r(i - 2, slot).wait()
-
-    uh = uslabs[uslot, 0, :, :]
-    ul = uslabs[uslot, 1, :, :]
-    off = scal_ref[3, 0].astype(jnp.int32)
-    # global column of lane 0 (0 single-device; negative on a 2D mesh's
-    # left-edge shards, whose ghost lanes sit before the domain)
-    coff = scal_ref[4, 0].astype(jnp.int32)
-
-    if with_update:
-        # u' = u - scale * e on the FULL extended window (the halo rows are
-        # recomputed identically by the neighboring block — deterministic)
-        scale = scal_ref[0, 0]
-        ebuf = ebufs[slot, 0, :, :] if stk_e else ebufs[slot, :, :]
-        ph, pe = two_prod(ebuf, scale)
-        uh, ul = ds_add(uh, ul, -ph, -pe)
-
-    if apply_bcs:
-        # NS temperature BCs on the whole extended window, hi and lo planes
-        # (Dirichlet rows first, Neumann column copies second)
-        E_ = BR + 2 * PAD
-        gye = off + i * BR - PAD + jax.lax.broadcasted_iota(jnp.int32, (E_, nxp), 0)
-        gxe = coff + jax.lax.broadcasted_iota(jnp.int32, (E_, nxp), 1)
-        onef = jnp.asarray(1.0, jnp.float32)
-        zerof = jnp.asarray(0.0, jnp.float32)
-        drow = (gye == 0) | (gye == ny - 1)
-        uh = jnp.where(gye == 0, onef, jnp.where(gye == ny - 1, zerof, uh))
-        ul = jnp.where(drow, zerof, ul)
-
-        def _rt(v):
-            return jnp.concatenate([v[:, 1:], v[:, -1:]], axis=1)
-
-        def _lf(v):
-            return jnp.concatenate([v[:, :1], v[:, :-1]], axis=1)
-
-        uh = jnp.where(gxe == 0, _rt(uh), jnp.where(gxe == nx - 1, _lf(uh), uh))
-        ul = jnp.where(gxe == 0, _rt(ul), jnp.where(gxe == nx - 1, _lf(ul), ul))
-
-    # --- ds 5-point residual ---
-    def sh_up(v):
-        return jnp.concatenate([v[:1, :], v[:-1, :]], axis=0)
-
-    def sh_dn(v):
-        return jnp.concatenate([v[1:, :], v[-1:, :]], axis=0)
-
-    def sh_lf(v):
-        return jnp.concatenate([v[:, :1], v[:, :-1]], axis=1)
-
-    def sh_rt(v):
-        return jnp.concatenate([v[:, 1:], v[:, -1:]], axis=1)
-
-    # neighbor sum with a two_sum cascade: collect the three exact addition
-    # errors + the four lo parts in plain f32 (their magnitudes are ~2^-24
-    # of the operands; accumulating them naively costs < 2^-48 relative)
-    s1, e1 = two_sum(sh_up(uh), sh_dn(uh))
-    s2, e2 = two_sum(sh_lf(uh), sh_rt(uh))
+def ds_defect(uh, ul, fh, fl, inv_h2: float, C=None):
+    """r_hi of A u - f in ds arithmetic on whole rp planes: the neighbour
+    sum with a two_sum cascade (the three exact addition errors and the
+    four lo parts collected in plain f32 — their magnitudes are ~2^-24 of
+    the operands, so accumulating them naively costs < 2^-48 relative),
+    C u as a ds product (exact x4 when C is None, i.e. c == 0), exact
+    power-of-two 1/h^2 scaling, and the final subtraction of f (fl None:
+    an exactly-f32 rhs).  Not interior-masked."""
+    s1, e1 = two_sum(shift_rows(uh, -1), shift_rows(uh, 1))
+    s2, e2 = two_sum(shift_cols(uh, -1), shift_cols(uh, 1))
     sh_, e3 = two_sum(s1, s2)
     sl_ = ((e1 + e2) + e3) + (
-        (sh_up(ul) + sh_dn(ul)) + (sh_lf(ul) + sh_rt(ul))
+        (shift_rows(ul, -1) + shift_rows(ul, 1))
+        + (shift_cols(ul, -1) + shift_cols(ul, 1))
     )
-
-    # C u (C = 4 + c h^2 passed as a ds scalar; exact x4 when c == 0)
-    if c_zero:
+    if C is None:
         cuh, cul = uh * 4.0, ul * 4.0
     else:
-        cuh, cul = ds_mul_ds(uh, ul, scal_ref[1, 0], scal_ref[2, 0])
-
+        cuh, cul = ds_mul_ds(uh, ul, C[0], C[1])
     th, tl = ds_add(sh_, sl_, -cuh, -cul)
-    # exact power-of-two scaling
     th, tl = th * inv_h2, tl * inv_h2
-
-    # r = t - f on the BLOCK rows only (f is fetched unextended); only the
-    # hi part is consumed (rhs of the f32 V-cycle and the norm), so skip
-    # the final renormalization's lo output
-    blk = slice(PAD, PAD + BR)
-    rs, re = two_sum(th[blk, :], -fbufs[slot, 0, :, :])
-    if f_single:
-        r = rs + (re + tl[blk, :])
-    else:
-        r = rs + (re + (tl[blk, :] - fbufs[slot, 1, :, :]))
-
-    gy = off + i * BR + jax.lax.broadcasted_iota(jnp.int32, (BR, nxp), 0)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (BR, nxp), 1)
-    gx = coff + lane
-    interior = (gy > 0) & (gy < ny - 1) & (gx > 0) & (gx < nx - 1)
-    r = jnp.where(interior, r, jnp.asarray(0.0, jnp.float32))
-    # reductions must cover each cell exactly ONCE across shards: ghost
-    # lanes of a 2D-mesh shard are globally-interior cells owned by the
-    # x-neighbor, so acc sums are restricted to the owned lane window
-    # (full width single-device).  field_sumsq covers the whole PHYSICAL
-    # domain (boundary ring included — the NS w_sumsq contract), not just
-    # the interior, so it gets its own domain mask.
-    if own_lanes is not None:
-        lane_win = (lane >= own_lanes[0]) & (lane < own_lanes[1])
-        owned = interior & lane_win
-        dom = (gy < ny) & (gx >= 0) & (gx < nx) & lane_win
-    else:
-        owned = interior
-        dom = (gy < ny) & (gx < nx)
-
-    ures[slot, 0, :, :] = uh[blk, :]
-    ures[slot, 1, :, :] = ul[blk, :]
-    if stk_e:
-        rres[slot, 0, :, :] = r
-    else:
-        rres[slot, :, :] = r
-
-    @pl.when(i == 0)
-    def _():
-        # all four slots zeroed regardless of flags: the extras tuple is
-        # returned whenever EITHER flag is set, and unwritten SMEM would
-        # otherwise leak garbage into the unrequested entries
-        acc_ref[0, 0] = jnp.asarray(0.0, jnp.float32)
-        acc_ref[1, 0] = jnp.asarray(0.0, jnp.float32)
-        acc_ref[2, 0] = jnp.asarray(0.0, jnp.float32)
-        acc_ref[3, 0] = jnp.asarray(0.0, jnp.float32)
-
-    acc_ref[0, 0] += jnp.sum(
-        jnp.where(owned, r, jnp.asarray(0.0, jnp.float32)) ** 2
-    )
-
-    if field_sumsq:
-        # sum of the updated field's squares (hi part; pads are zero), so a
-        # consumer needing tol*rms(u') skips a standalone reduction pass
-        ub = jnp.where(dom, uh[blk, :], jnp.asarray(0.0, jnp.float32))
-        acc_ref[3, 0] += jnp.sum(ub * ub)
-
-    if velocity_max:
-        # curl maxima of the UPDATED field (the NS adaptive-dt inputs,
-        # part2.jl:76-87): vx = dS/dy (row shift), vy = -dS/dx (col shift),
-        # evaluated on the interior — this replaces two standalone XLA
-        # reduction passes per NS step with free VPU work on data already
-        # in registers.  The halo rows make the row shifts exact.
-        i2h = jnp.asarray(inv2h, jnp.float32)
-        vx = (uh[PAD + 1 : PAD + 1 + BR, :] - uh[PAD - 1 : PAD - 1 + BR, :]) * i2h
-        lf = jnp.concatenate([uh[blk, :1], uh[blk, :-1]], axis=1)
-        rt = jnp.concatenate([uh[blk, 1:], uh[blk, -1:]], axis=1)
-        vy = (rt - lf) * i2h
-        vx = jnp.where(owned, jnp.abs(vx), jnp.asarray(0.0, jnp.float32))
-        vy = jnp.where(owned, jnp.abs(vy), jnp.asarray(0.0, jnp.float32))
-        acc_ref[1, 0] = jnp.maximum(acc_ref[1, 0], jnp.max(vx))
-        acc_ref[2, 0] = jnp.maximum(acc_ref[2, 0], jnp.max(vy))
-
-    if stk_e:
-        # race-close: block i+1's u slab fully on-chip before this block's
-        # aliased u' write starts
-        @pl.when(i + 1 < n_blocks)
-        def _():
-            copy_u(i + 1).wait()
-
-    copy_uo(i, slot).start()
-    copy_r(i, slot).start()
-
-    @pl.when(i == n_blocks - 1)
-    def _():
-        @pl.when(n_blocks >= 2)
-        def _():
-            copy_uo(i - 1, nslot).wait()
-            copy_r(i - 1, nslot).wait()
-
-        copy_uo(i, slot).wait()
-        copy_r(i, slot).wait()
+    # only the hi part is consumed (rhs of the f32 V-cycle and the norm),
+    # so the final renormalization's lo output is skipped
+    rs, re = two_sum(th, -fh)
+    if fl is None:
+        return rs + (re + tl)
+    return rs + (re + (tl - fl))
 
 
-@functools.lru_cache(maxsize=128)
-def _build_defect(ny, nx, layout_br, inv_h2, c_zero, with_update, interpret,
-                  apply_bcs=False, f_single=False, velocity_max=False,
-                  field_sumsq=False, inv2h=0.0, ny_mask=None, stk_e=False,
-                  nx_mask=None, own_lanes=None):
-    total = padded_rows(ny, layout_br)
-    nxp = padded_cols(nx)
-    # the ds kernel keeps ~15 live (E, nxp) f32 planes (5 double-buffered
-    # streams + the ds temporaries); at the smooth kernels' block size that
-    # spills past VMEM, so block at half the LAYOUT br.  The padded total is
-    # unchanged: total - 2*PAD = blocks * layout_br is divisible by br/2.
-    BR = layout_br // 2 if layout_br >= 32 else layout_br
-    if stk_e:
-        # the 3-slot u pipeline + the ds temporaries' register spills
-        # (~8 live planes, measured 133 MB total at a 36.5 MB u-slab
-        # scratch) overflow VMEM at wide layouts: halve until the u-slab
-        # scratch is <= 33 MB (the 4097^2 anchor that compiles with room)
-        def _uslab(br_):
-            return 3 * 2 * (br_ + 2 * PAD) * nxp * 4
-
-        while (
-            _uslab(BR) > 33 * 1024 * 1024
-            and (BR // 2) % 8 == 0
-            and (total - 2 * PAD) % (BR // 2) == 0
-        ):
-            BR //= 2
-    n_blocks = (total - 2 * PAD) // BR
-    assert n_blocks * BR == total - 2 * PAD, (total, layout_br, BR)
-    kernel = functools.partial(
-        _defect_kernel,
-        BR=BR, ny=ny_mask if ny_mask is not None else ny,
-        nx=nx_mask if nx_mask is not None else nx, nxp=nxp,
-        inv_h2=inv_h2, c_zero=c_zero, with_update=with_update,
-        apply_bcs=apply_bcs, f_single=f_single,
-        velocity_max=velocity_max, field_sumsq=field_sumsq, inv2h=inv2h,
-        stk_e=stk_e, own_lanes=own_lanes,
-    )
-    f32 = jnp.float32
-    fplanes = 1 if f_single else 2
-    SU = 3 if stk_e else 2  # u pipeline slots (see kernel)
-    eplanes = (1,) if stk_e else ()
-    e_in = (
-        pl.BlockSpec((2, total, nxp), lambda i: _im32(0, 0, 0), memory_space=pl.ANY)
-        if stk_e
-        else pl.BlockSpec((total, nxp), lambda i: _im32(0, 0), memory_space=pl.ANY)
-    )
-    r_out_spec = (
-        pl.BlockSpec((2, total, nxp), lambda i: _im32(0, 0, 0), memory_space=pl.ANY)
-        if stk_e
-        else pl.BlockSpec((total, nxp), lambda i: _im32(0, 0), memory_space=pl.ANY)
-    )
-    r_out_shape = (
-        jax.ShapeDtypeStruct((2, total, nxp), f32)
-        if stk_e
-        else jax.ShapeDtypeStruct((total, nxp), f32)
-    )
-    kw = {}
-    if stk_e:
-        # single-consumer donation chain: u_ds -> u_out, L -> L_out
-        kw["input_output_aliases"] = {1: 0, 3: 1}
-    return pl.pallas_call(
-        kernel,
-        grid=(n_blocks,),
-        in_specs=[
-            pl.BlockSpec((5, 1), lambda i: _im32(0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((2, total, nxp), lambda i: _im32(0, 0, 0), memory_space=pl.ANY),
-            pl.BlockSpec((fplanes, total, nxp), lambda i: _im32(0, 0, 0), memory_space=pl.ANY),
-            e_in,
-        ],
-        out_specs=[
-            pl.BlockSpec((2, total, nxp), lambda i: _im32(0, 0, 0), memory_space=pl.ANY),
-            r_out_spec,
-            pl.BlockSpec((4, 1), lambda i: _im32(0, 0), memory_space=pltpu.SMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((2, total, nxp), f32),
-            r_out_shape,
-            jax.ShapeDtypeStruct((4, 1), f32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((SU, 2, BR + 2 * PAD, nxp), f32),
-            pltpu.VMEM((2, fplanes, BR, nxp), f32),
-            pltpu.VMEM((2,) + eplanes + (BR + 2 * PAD, nxp), f32),
-            pltpu.VMEM((2, 2, BR, nxp), f32),
-            pltpu.VMEM((2,) + eplanes + (BR, nxp), f32),
-            pltpu.SemaphoreType.DMA((SU,)),
-            pltpu.SemaphoreType.DMA((2,)),
-            pltpu.SemaphoreType.DMA((2,)),
-            pltpu.SemaphoreType.DMA((2,)),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=90 * ny * nx,
-            bytes_accessed=8 * ny * nx * 4,
-            transcendentals=0,
-        ),
-        compiler_params=pltpu.CompilerParams(
-            # see pallas2d: declare only what the blocking needs
-            vmem_limit_bytes=(127 if nxp >= 8320 else 110) * 1024 * 1024,
-        ),
-        interpret=interpret,
-        **kw,
-    )
+def defect_sumsq(r, owned):
+    """sum(r^2) over the owned cells of the block rows."""
+    return block_sumsq(jnp.where(owned, r, jnp.zeros((), r.dtype)))
 
 
-def _defect_scalars(c, h, scale, row_off, col_off=0):
-    """(5, 1) SMEM scalars [scale, C_hi, C_lo, row_off, col_off] for the defect
-    kernel.  C = 4 + c h^2 split to a ds scalar: in f64 at trace time if c
-    is a Python scalar; via f64 rounding if c is a traced f64; via
-    error-free transformations if c is a traced f32 (the TPU
-    runtime-scalar path — h^2 = 2^-2k is exact in f32, so
-    two_prod/two_sum keep all ~48 bits of C, which the residual's C*u
-    term needs to stay below tol)."""
+def curl_maxima(uh, owned, inv2h: float):
+    """(max|du/dy|, max|du/dx|) over the owned cells of the block rows —
+    the NS adaptive-dt inputs (part2.jl:76-87) for u = the streamfunction."""
+    i2h = jnp.asarray(inv2h, uh.dtype)
+    zero = jnp.zeros((), uh.dtype)
+    vx = jnp.abs((shift_rows(uh, 1) - shift_rows(uh, -1)) * i2h)
+    vy = jnp.abs((shift_cols(uh, 1) - shift_cols(uh, -1)) * i2h)
+    return (jnp.max(block_rows(jnp.where(owned, vx, zero))),
+            jnp.max(block_rows(jnp.where(owned, vy, zero))))
+
+
+def _c_pair(c, h):
+    """C = 4 + c h^2 as a ds pair: in f64 at trace time if c is a Python
+    scalar; via f64 rounding if c is a traced f64; via error-free
+    transformations if c is a traced f32 (h^2 = 2^-2k is exact in f32, so
+    two_prod/two_sum keep all ~48 bits of C, which the residual's C*u term
+    needs to stay below tol).  None when c == 0 (exact x4 path)."""
     if isinstance(c, (int, float)):
-        import numpy as np
-
+        if float(c) == 0.0:
+            return None
         C = 4.0 + float(c) * float(h) * float(h)
-        C_hi_py = float(np.float32(C))
-        C_hi = jnp.asarray(C_hi_py, jnp.float32)
-        C_lo = jnp.asarray(C - C_hi_py, jnp.float32)
-    elif c.dtype == jnp.float32:
+        hi, lo = f32_pair(C)
+        return jnp.asarray(hi, jnp.float32), jnp.asarray(lo, jnp.float32)
+    if c.dtype == jnp.float32:
         h2 = jnp.asarray(float(h) * float(h), jnp.float32)
         p, pe = two_prod(c, h2)
         s, se = two_sum(jnp.asarray(4.0, jnp.float32), p)
-        C_hi, C_lo = quick_two_sum(s, se + pe)
-    else:
-        C64 = 4.0 + c * (h * h)  # traced; x64 if enabled
-        C_hi = C64.astype(jnp.float32)
-        C_lo = (C64 - C_hi.astype(C64.dtype)).astype(jnp.float32)
-    return jnp.stack(
-        [jnp.asarray(scale, jnp.float32), C_hi, C_lo,
-         jnp.asarray(row_off, jnp.float32), jnp.asarray(col_off, jnp.float32)]
-    ).reshape(5, 1)
-
-
-def defect_pass_stk(u_ds, f_ds, L, scale, ny, nx, br, h, c,
-                    apply_bcs=False, f_single=False, velocity_max=False,
-                    field_sumsq=False, row_off=0, ny_mask=None,
-                    raw_sumsq=False, with_update=True, col_off=0,
-                    nx_mask=None, own_lanes=None):
-    """defect_pass on the stacked level state: e = L[0], and the new
-    defect is written INTO plane 1 of the (donated) L.  Both u_ds and L
-    are aliased through — the caller's solver loop is then a pure
-    single-consumer donation chain with no XLA copy-protection copies.
-
-    Returns (u_ds', L', r_rms[, extras]) where L'[1] is the new defect
-    and L'[0] is unspecified (the next V-cycle's zero_u leg never reads
-    it; interpret mode leaves it zero)."""
-    inv_h2 = 1.0 / (float(h) * float(h))
-    if not _is_pow2(inv_h2):
-        raise ValueError(f"1/h^2 = {inv_h2} must be a power of two (h = 1/2^k)")
-    if f_ds.shape[0] not in (1, 2):
-        raise ValueError(f"f_ds must be (1|2, rows, cols), got {f_ds.shape}")
-    f_single = f_ds.shape[0] == 1
-    c_zero = isinstance(c, (int, float)) and float(c) == 0.0
-    call = _build_defect(
-        ny, nx, br, inv_h2, c_zero, with_update, not _on_tpu(),
-        apply_bcs=bool(apply_bcs), f_single=bool(f_single),
-        velocity_max=bool(velocity_max), field_sumsq=bool(field_sumsq),
-        inv2h=0.5 / float(h), ny_mask=ny_mask, stk_e=True, nx_mask=nx_mask,
-        own_lanes=own_lanes,
-    )
-    scal = _defect_scalars(c, h, scale, row_off, col_off)
-    u_out, L_out, acc = call(scal, u_ds, f_ds, L)
-    r_rms = acc[0, 0] if raw_sumsq else jnp.sqrt(acc[0, 0] / (nx * ny))
-    if velocity_max or field_sumsq:
-        return u_out, L_out, r_rms, (acc[1, 0], acc[2, 0], acc[3, 0])
-    return u_out, L_out, r_rms
+        return quick_two_sum(s, se + pe)
+    C64 = 4.0 + c * (h * h)  # traced; x64 if enabled
+    C_hi = C64.astype(jnp.float32)
+    return C_hi, (C64 - C_hi.astype(C64.dtype)).astype(jnp.float32)
 
 
 def defect_pass(u_ds, f_ds, e_rp, scale, ny, nx, br, h, c, with_update=True,
@@ -612,34 +210,87 @@ def defect_pass(u_ds, f_ds, e_rp, scale, ny, nx, br, h, c, with_update=True,
     """Fused: u' = u - scale*e (ds), [BCs(u')], r = A u' - f (ds), sumsq(r_hi).
 
     u_ds: (2, padded_rows, padded_cols) f32 hi/lo stack; f_ds likewise, or
-    (1, padded_rows, padded_cols) with f_single (exactly-f32 rhs).
+    (1, padded_rows, padded_cols) for an exactly-f32 rhs (the layout is the
+    contract: a 1-plane f_ds means f_single, whatever the flag says).
     e_rp: row-padded f32 correction (ignored when with_update=False).
-    apply_bcs: NS temperature BCs applied to u' before the residual.
-    Returns (u_ds', r32_rp, r_rms) with r_rms = sqrt(sumsq / (nx*ny)).
+    apply_bcs: the NS temperature BCs (Dirichlet bottom/top, Neumann sides,
+    Neumann winning at corners — part2_utils.jl:22-25) applied to u' before
+    the residual, mirroring mg_solve_mixed's per-outer-iteration BCs.
+    Distributed: ny/nx are the local layout, ny_mask/nx_mask the global
+    grid, row_off/col_off the global row of local physical row 0 and the
+    global column of lane 0; own_lanes=(lo, hi) restricts every reduction
+    to the lanes this shard owns (a 2D mesh's ghost lanes belong to the x
+    neighbour); raw_sumsq returns the raw local sum for a psum.
+    Returns (u_ds', r32_rp, r_rms) with r_rms = sqrt(sumsq / (nx*ny)), plus
+    (max|vx|, max|vy|, sumsq(u'_hi)) when velocity_max or field_sumsq
+    (zeros for the ones not asked for).
     """
     inv_h2 = 1.0 / (float(h) * float(h))
     if not _is_pow2(inv_h2):
         raise ValueError(f"1/h^2 = {inv_h2} must be a power of two (h = 1/2^k)")
-    # the layout IS the contract: a 1-plane f_ds means an exactly-f32 rhs
-    # (reading a 2nd plane the DMA never fills would be garbage), so derive
-    # the flag from the shape rather than trusting the caller
     if f_ds.shape[0] not in (1, 2):
         raise ValueError(f"f_ds must be (1|2, rows, cols), got {f_ds.shape}")
-    f_single = f_ds.shape[0] == 1
-    c_zero = isinstance(c, (int, float)) and float(c) == 0.0
-    call = _build_defect(
-        ny, nx, br, inv_h2, c_zero, with_update, not _on_tpu(),
-        apply_bcs=bool(apply_bcs), f_single=bool(f_single),
-        velocity_max=bool(velocity_max), field_sumsq=bool(field_sumsq),
-        inv2h=0.5 / float(h), ny_mask=ny_mask, nx_mask=nx_mask,
+    ny_g = ny_mask if ny_mask is not None else ny
+    nx_g = nx_mask if nx_mask is not None else nx
+    f32 = jnp.float32
+    uh, ul = u_ds[0], u_ds[1]
+    gy, gx = global_coords(uh.shape, row_off, col_off)
+
+    if with_update:
+        ph, pe = two_prod(e_rp, jnp.asarray(scale, f32))
+        uh, ul = ds_add(uh, ul, -ph, -pe)
+
+    if apply_bcs:
+        one, zero = jnp.asarray(1.0, f32), jnp.asarray(0.0, f32)
+        drow = (gy == 0) | (gy == ny_g - 1)
+        uh = jnp.where(gy == 0, one, jnp.where(gy == ny_g - 1, zero, uh))
+        ul = jnp.where(drow, zero, ul)
+
+        def sides(v):
+            return jnp.where(gx == 0, shift_cols(v, 1),
+                             jnp.where(gx == nx_g - 1, shift_cols(v, -1), v))
+
+        uh, ul = sides(uh), sides(ul)
+
+    fl = None if f_ds.shape[0] == 1 else f_ds[1]
+    r = ds_defect(uh, ul, f_ds[0], fl, inv_h2, _c_pair(c, h))
+    interior = interior_mask(gy, gx, ny_g, nx_g)
+    r = jnp.where(interior, r, jnp.asarray(0.0, f32))
+    if own_lanes is not None:
+        lane = gx - jnp.asarray(col_off, jnp.int32)
+        lane_win = (lane >= own_lanes[0]) & (lane < own_lanes[1])
+        owned = interior & lane_win
+        dom = (gy < ny_g) & (gx >= 0) & (gx < nx_g) & lane_win
+    else:
+        owned = interior
+        dom = (gy < ny_g) & (gx < nx_g)
+
+    sumsq = defect_sumsq(r, owned)
+    r_rms = sumsq if raw_sumsq else jnp.sqrt(sumsq / (nx * ny))
+    u_out = jnp.stack([uh, ul])
+    if not (velocity_max or field_sumsq):
+        return u_out, r, r_rms
+    zero = jnp.asarray(0.0, f32)
+    ax, ay = curl_maxima(uh, owned, 0.5 / float(h)) if velocity_max else (zero, zero)
+    # field_sumsq covers the whole PHYSICAL domain (boundary ring included)
+    ss = block_sumsq(jnp.where(dom, uh, zero)) if field_sumsq else zero
+    return u_out, r, r_rms, (ax, ay, ss)
+
+
+def defect_pass_stk(u_ds, f_ds, L, scale, ny, nx, br, h, c,
+                    apply_bcs=False, f_single=False, velocity_max=False,
+                    field_sumsq=False, row_off=0, ny_mask=None,
+                    raw_sumsq=False, with_update=True, col_off=0,
+                    nx_mask=None, own_lanes=None):
+    """defect_pass on the stacked level state: e = L[0], and the new
+    defect is written into plane 1 of L.  Returns (u_ds', L', r_rms[,
+    extras]) where L'[1] is the new defect and L'[0] is left as it was
+    (the next V-cycle's zero_u leg never reads it)."""
+    out = defect_pass(
+        u_ds, f_ds, L[0], scale, ny, nx, br, h, c, with_update=with_update,
+        apply_bcs=apply_bcs, velocity_max=velocity_max,
+        field_sumsq=field_sumsq, row_off=row_off, ny_mask=ny_mask,
+        raw_sumsq=raw_sumsq, col_off=col_off, nx_mask=nx_mask,
         own_lanes=own_lanes,
     )
-    scal = _defect_scalars(c, h, scale, row_off, col_off)
-    u_out, r32, acc = call(scal, u_ds, f_ds, e_rp)
-    # raw_sumsq: the distributed solver psums the raw local sum before
-    # normalizing by the GLOBAL cell count
-    r_rms = acc[0, 0] if raw_sumsq else jnp.sqrt(acc[0, 0] / (nx * ny))
-    if velocity_max or field_sumsq:
-        # extras: (max|vx|, max|vy|, sumsq(u'_hi)) — zeros when not computed
-        return u_out, r32, r_rms, (acc[1, 0], acc[2, 0], acc[3, 0])
-    return u_out, r32, r_rms
+    return (out[0], L.at[1].set(out[1])) + tuple(out[2:])

@@ -1,65 +1,48 @@
-"""Double-single (two-f32) 3D dual-time diffusion kernel.
+"""Double-single (two-f32) 3D dual-time diffusion step.
 
 Part 1's work-precision experiments sweep the solver tolerance down to
 1e-10 at 128^3 (part1_error_vs_tolerance_experiments.jl:25-26) — far below
-the f32 residual floor eps*(|H|/dt + D|H|/h^2), and XLA-emulated f64 costs
-~29 ms per 128^3 iteration on TPU (measured: one tol=1e-6 solve = 545 s).
-This kernel runs the SAME pseudo-time iteration on ~48-bit double-single
-state at native f32 VPU speed:
+the f32 residual floor eps*(|H|/dt + D|H|/h^2).  This step runs the SAME
+pseudo-time iteration on ~48-bit double-single state in f32 arithmetic:
 
     dHdtau = (Htau - Ht)/dt - D lap(Htau)      (all in ds arithmetic)
     Htau' = Htau - dtau * dHdtau               (interior; passthrough else)
-    acc  += sum(dHdtau_hi^2)                    (f32 — dH^2 ~ 1e-19 at
+    sumsq = sum(dHdtau_hi^2)                   (f32 — dH^2 ~ 1e-19 at
                                                 tol 1e-10, well inside f32)
 
 Layout mirrors fpr_tpu.ops.pallas3d: hi/lo planes stacked ahead of the
-ghost/tile-padded (nz+2, ny8, nx128) state; one DMA moves both planes of a
-slab.  Constants (1/dt, D/dx^2, dtau) are ds scalars split from f64 at
-trace time, so non-power-of-two grid spacings (dx = 10/127) keep full
-precision.  Error-free transforms from fpr_tpu.ops.ds (Dekker/Knuth).
+ghost-padded (nz+2, ny8, nx128) state.  Constants (1/dt, D/dx^2, dtau) are
+ds scalars split from f64 at trace time, so non-power-of-two grid spacings
+(dx = 10/127) keep full precision.  Error-free transforms from
+fpr_tpu.ops.ds (Dekker/Knuth).
 """
 
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
-import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from fpr_tpu.ops.ds import ds_add, ds_mul_ds, f32_pair, two_sum
-from fpr_tpu.ops.pallas3d import _im32, _on_tpu, _pad_yx, _pick_bz, _shift_x, _shift_y
-
-
-_ds_const = f32_pair  # trace-time (hi, lo) constant split (fpr_tpu.ops.ds)
+from fpr_tpu.ops.pallas3d import _interior, _pad_yx, _shift
 
 
 def pad3d_ds(hi, lo):
-    """(nz, ny, nx) hi/lo -> (2, nz+2, ny8, nx128) stacked ghost/tile-padded.
-
-    Ghost-plane invariant: only this entry path guarantees ZERO z-ghost
-    planes (rows 0 and nz+1).  The ds3d kernel's output never writes them,
-    so on iterated states they hold unspecified memory — benign, because
-    the interior mask excludes every cell a ghost plane feeds, but no
-    consumer may read ghosts off a kernel output (from_ds_padded doesn't).
-    """
-    pads = ((1, 1), (0, _pad_yx(*hi.shape[1:])[0] - hi.shape[1]),
-            (0, _pad_yx(*hi.shape[1:])[1] - hi.shape[2]))
+    """(nz, ny, nx) hi/lo -> (2, nz+2, ny8, nx128) stacked ghost-padded
+    state with zero ghost planes (the step returns them unchanged)."""
+    _, ny, nx = hi.shape
+    ny8, nx128 = _pad_yx(ny, nx)
+    pads = ((1, 1), (0, ny8 - ny), (0, nx128 - nx))
     return jnp.stack([jnp.pad(hi, pads), jnp.pad(lo, pads)])
 
 
 def to_ds_padded(H):
-    """f64 physical field -> stacked ds ghost/tile-padded state."""
+    """f64 physical field -> stacked ds ghost-padded state."""
     hi = H.astype(jnp.float32)
     lo = (H - hi.astype(H.dtype)).astype(jnp.float32)
     return pad3d_ds(hi, lo)
 
 
 def from_ds_padded(Hds, shape, dtype=jnp.float64):
-    """Physical field from a ds-padded state; reads interior planes only
-    (kernel outputs carry unspecified z-ghost planes — see pad3d_ds)."""
+    """Physical field from a ds-padded state (interior planes only)."""
     nz, ny, nx = shape
     return (
         Hds[0, 1 : 1 + nz, :ny, :nx].astype(dtype)
@@ -67,206 +50,56 @@ def from_ds_padded(Hds, shape, dtype=jnp.float64):
     )
 
 
-def _ds3d_kernel(
-    zb_ref, ht_hbm, htau_hbm, out_hbm, acc_ref,
-    slabs, htbufs, results, sem_in, sem_ht, sem_out,
-    *, BZ, nz, ny, nx, nyp, nxp, consts,
-):
-    """consts: dict of ds-constant pairs (inv_dt, bx, by, bz, dtau) where
-    b* = D/d*^2 (the diffusion weights folded with the spacings)."""
-    i = pl.program_id(0)
-    n_blocks = pl.num_programs(0)
-    slot = jax.lax.rem(i, jnp.asarray(2, i.dtype))
-    nslot = 1 - slot
-
-    def _i32(v):
-        return jnp.asarray(v, jnp.int32)
-
-    def copy_in(block, s):
-        block, s = _i32(block), _i32(s)
-        return pltpu.make_async_copy(
-            htau_hbm.at[:, pl.ds(block * BZ, BZ + 2), :, :], slabs.at[s], sem_in.at[s]
-        )
-
-    def copy_ht(block, s):
-        block, s = _i32(block), _i32(s)
-        return pltpu.make_async_copy(
-            ht_hbm.at[:, pl.ds(block * BZ, BZ), :, :], htbufs.at[s], sem_ht.at[s]
-        )
-
-    def copy_out(block, s):
-        block, s = _i32(block), _i32(s)
-        return pltpu.make_async_copy(
-            results.at[s], out_hbm.at[:, pl.ds(block * BZ + 1, BZ), :, :], sem_out.at[s]
-        )
-
-    @pl.when(i == 0)
-    def _():
-        copy_in(0, 0).start()
-        copy_ht(0, 0).start()
-
-    @pl.when(i + 1 < n_blocks)
-    def _():
-        copy_in(i + 1, nslot).start()
-        copy_ht(i + 1, nslot).start()
-
-    copy_in(i, slot).wait()
-    copy_ht(i, slot).wait()
-
-    @pl.when(i >= 2)
-    def _():
-        copy_out(i - 2, slot).wait()
-
-    uh = slabs[slot, 0, :, :, :]
-    ul = slabs[slot, 1, :, :, :]
-    hth = htbufs[slot, 0, :, :, :]
-    htl = htbufs[slot, 1, :, :, :]
-    f32 = jnp.float32
-
-    def c_(pair):
-        return (jnp.asarray(pair[0], f32), jnp.asarray(pair[1], f32))
-
-    inv_dt = c_(consts["inv_dt"])
-    bx, by, bz = c_(consts["bx"]), c_(consts["by"]), c_(consts["bz"])
-    dtau = c_(consts["dtau"])
-
-    ch, cl = uh[1 : BZ + 1], ul[1 : BZ + 1]
-
-    def second_diff(ph, pl_, mh, ml):
-        """(p + m) - 2c in ds (exact up to the final lo accumulation)."""
-        s, e1 = two_sum(ph, mh)
-        t, e2 = two_sum(s, -2.0 * ch)
-        lo = (e1 + e2) + ((pl_ + ml) - 2.0 * cl)
-        return t, lo
-
-    ddz = second_diff(uh[2 : BZ + 2], ul[2 : BZ + 2], uh[0:BZ], ul[0:BZ])
-    ddy = second_diff(
-        _shift_y(ch, +1), _shift_y(cl, +1), _shift_y(ch, -1), _shift_y(cl, -1)
-    )
-    ddx = second_diff(
-        _shift_x(ch, +1), _shift_x(cl, +1), _shift_x(ch, -1), _shift_x(cl, -1)
-    )
-
-    lap = ds_mul_ds(*ddx, *bx)
-    lap = ds_add(*lap, *ds_mul_ds(*ddy, *by))
-    lap = ds_add(*lap, *ds_mul_ds(*ddz, *bz))
-
-    s, e = two_sum(ch, -hth)
-    tl_ = e + (cl - htl)
-    term = ds_mul_ds(s, tl_, *inv_dt)
-
-    dh_h, dh_l = ds_add(*term, -lap[0], -lap[1])
-
-    z0 = i * BZ
-    gz = z0 + jax.lax.broadcasted_iota(jnp.int32, (BZ, nyp, nxp), 0)
-    gy = jax.lax.broadcasted_iota(jnp.int32, (BZ, nyp, nxp), 1)
-    gx = jax.lax.broadcasted_iota(jnp.int32, (BZ, nyp, nxp), 2)
-    interior = (
-        (gz >= zb_ref[0]) & (gz <= zb_ref[1])
-        & (gy > 0) & (gy < ny - 1)
-        & (gx > 0) & (gx < nx - 1)
-    )
-    zero = jnp.asarray(0.0, f32)
-    dh_h = jnp.where(interior, dh_h, zero)
-    dh_l = jnp.where(interior, dh_l, zero)
-
-    ph, pe = ds_mul_ds(dh_h, dh_l, *dtau)
-    nh, nl = ds_add(ch, cl, -ph, -pe)
-    results[slot, 0, :, :, :] = nh
-    results[slot, 1, :, :, :] = nl
-
-    @pl.when(i == 0)
-    def _():
-        acc_ref[0, 0] = zero
-
-    acc_ref[0, 0] += jnp.sum(dh_h * dh_h)
-
-    copy_out(i, slot).start()
-
-    @pl.when(i == n_blocks - 1)
-    def _():
-        @pl.when(n_blocks >= 2)
-        def _():
-            copy_out(i - 1, nslot).wait()
-
-        copy_out(i, slot).wait()
-
-
-@functools.lru_cache(maxsize=64)
-def _build_ds3d(shape, BZ, dt, dtau, dx, dy, dz, D, interpret):
-    nz, ny, nx = shape
-    nyp, nxp = _pad_yx(ny, nx)
-    f32 = jnp.float32
-    grid = (nz // BZ,)
-    consts = dict(
-        inv_dt=_ds_const(1.0 / dt),
-        bx=_ds_const(D / (dx * dx)),
-        by=_ds_const(D / (dy * dy)),
-        bz=_ds_const(D / (dz * dz)),
-        dtau=_ds_const(dtau),
-    )
-    kernel = functools.partial(
-        _ds3d_kernel,
-        BZ=BZ, nz=nz, ny=ny, nx=nx, nyp=nyp, nxp=nxp, consts=consts,
-    )
-    return pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((2,), lambda i: _im32(0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((2, nz, nyp, nxp), lambda i: _im32(0, 0, 0, 0), memory_space=pl.ANY),
-            pl.BlockSpec((2, nz + 2, nyp, nxp), lambda i: _im32(0, 0, 0, 0), memory_space=pl.ANY),
-        ],
-        out_specs=[
-            pl.BlockSpec((2, nz + 2, nyp, nxp), lambda i: _im32(0, 0, 0, 0), memory_space=pl.ANY),
-            pl.BlockSpec((1, 1), lambda i: _im32(0, 0), memory_space=pltpu.SMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((2, nz + 2, nyp, nxp), f32),
-            jax.ShapeDtypeStruct((1, 1), f32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((2, 2, BZ + 2, nyp, nxp), f32),
-            pltpu.VMEM((2, 2, BZ, nyp, nxp), f32),
-            pltpu.VMEM((2, 2, BZ, nyp, nxp), f32),
-            pltpu.SemaphoreType.DMA((2,)),
-            pltpu.SemaphoreType.DMA((2,)),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=190 * nz * ny * nx,
-            bytes_accessed=8 * 4 * nz * ny * nx,
-            transcendentals=0,
-        ),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=110 * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )
-
-
 def dual_time_step_ds_padded(
-    Ht_ds, Htau_ds, shape, dt, dtau, dx, dy, dz, D, block_z=None, z_bounds=None,
+    Ht_ds, Htau_ds, shape, dt, dtau, dx, dy, dz, D, z_bounds=None,
 ):
-    """One ds pseudo-time iteration on stacked hi/lo ghost/tile-padded state.
+    """One ds pseudo-time iteration on stacked hi/lo ghost-padded state.
 
     Ht_ds: (2, nz, ny8, nx128); Htau_ds: (2, nz+2, ny8, nx128).
     Returns (Htau_ds', sumsq of dHdtau_hi over the updateable cells, f32).
     """
     nz, ny, nx = shape
-    nyp, nxp = _pad_yx(ny, nx)
-    # ds streams double the traffic and keep ~8 extra live plane-temporaries:
-    # block at half the f32 kernel's depth (same VMEM envelope)
-    BZ = block_z or max(1, _pick_bz(nz, nyp, nxp, 8) // 2)
-    while nz % BZ:
-        BZ -= 1
-    call = _build_ds3d(
-        tuple(shape), BZ, float(dt), float(dtau),
-        float(dx), float(dy), float(dz), float(D), not _on_tpu(),
-    )
+    f32 = jnp.float32
+
+    def c_(x):
+        hi, lo = f32_pair(x)
+        return jnp.asarray(hi, f32), jnp.asarray(lo, f32)
+
+    inv_dt, dtau_ = c_(1.0 / dt), c_(dtau)
+    bx, by, bz = c_(D / (dx * dx)), c_(D / (dy * dy)), c_(D / (dz * dz))
+
+    uh, ul = Htau_ds[0], Htau_ds[1]
+    ch, cl = uh[1 : nz + 1], ul[1 : nz + 1]
+
+    def second_diff(ph, pl_, mh, ml):
+        """(p + m) - 2c in ds (exact up to the final lo accumulation)."""
+        s, e1 = two_sum(ph, mh)
+        t, e2 = two_sum(s, -2.0 * ch)
+        return t, (e1 + e2) + ((pl_ + ml) - 2.0 * cl)
+
+    ddz = second_diff(uh[2 : nz + 2], ul[2 : nz + 2], uh[0:nz], ul[0:nz])
+    ddy = second_diff(_shift(ch, 1, 1), _shift(cl, 1, 1),
+                      _shift(ch, 1, -1), _shift(cl, 1, -1))
+    ddx = second_diff(_shift(ch, 2, 1), _shift(cl, 2, 1),
+                      _shift(ch, 2, -1), _shift(cl, 2, -1))
+
+    lap = ds_mul_ds(*ddx, *bx)
+    lap = ds_add(*lap, *ds_mul_ds(*ddy, *by))
+    lap = ds_add(*lap, *ds_mul_ds(*ddz, *bz))
+
+    s, e = two_sum(ch, -Ht_ds[0])
+    term = ds_mul_ds(s, e + (cl - Ht_ds[1]), *inv_dt)
+    dh_h, dh_l = ds_add(*term, -lap[0], -lap[1])
+
     if z_bounds is None:
         z_bounds = (1, nz - 2)
-    zb = jnp.stack([jnp.asarray(z_bounds[0], jnp.int32),
-                    jnp.asarray(z_bounds[1], jnp.int32)])
-    out, acc = call(zb, Ht_ds, Htau_ds)
-    return out, acc[0, 0]
+    interior = _interior(ch.shape, 0, jnp.asarray(z_bounds[0], jnp.int32),
+                         jnp.asarray(z_bounds[1], jnp.int32), ny, nx)
+    zero = jnp.asarray(0.0, f32)
+    dh_h = jnp.where(interior, dh_h, zero)
+    dh_l = jnp.where(interior, dh_l, zero)
+
+    ph, pe = ds_mul_ds(dh_h, dh_l, *dtau_)
+    nh, nl = ds_add(ch, cl, -ph, -pe)
+    out = Htau_ds.at[:, 1 : nz + 1].set(jnp.stack([nh, nl]))
+    return out, jnp.sum(dh_h * dh_h)

@@ -1,86 +1,50 @@
-"""Fused 2D stencil kernels for the multigrid smoother/residual — Pallas TPU.
+"""Fused 2D stencil legs of the multigrid V-cycle on the row-padded layout.
 
 The analog of the reference's shared-memory 2D kernels
 (residual_2DPoisson_shmem!, multigrid.jl:191-220; matvec shmem,
-krylov.jl:16-34), fused further: one kernel per damped-Jacobi smooth does
+krylov.jl:16-34).  One damped-Jacobi smooth is
 
     res  = (u_E + u_W + u_N + u_S - C u)/h^2 - f
     u'   = u + alpha h^2/C * res         (interior only)
-    acc += sum(res^2 over interior)      (only when the norm is consumed)
+    acc  = sum(res^2 over interior)      (only when the norm is consumed)
 
-in a single HBM pass (~3.1 words/cell), where the reference runs a residual
-kernel, a separate device reduction, and a broadcast update per smooth
-(multigrid.jl:245-258).
+and the V-cycle legs chain several sweeps with the post-smooth residual
+(downward leg) or with the prolongated correction (upward leg).  The
+bodies are plain ``jax.numpy``; XLA fuses each sweep into one pass.  The
+reference runs a residual kernel, a separate device reduction and a
+broadcast update per smooth (multigrid.jl:245-258).
 
-Row-padded layout
------------------
-2D arrays put rows in the (tile-constrained) sublane dimension, so halo
-windows must be 8-aligned in offset and size.  We store kernel operands
-row-padded ("rp"): PAD=8 ghost rows on top, and bottom padding up to
-8 + ceil(ny/BR)*BR rows, physical row y at padded row y+8 (``pad2d`` /
-``unpad2d``).  Every block's halo window [k*BR, k*BR+BR+16) is then
-tile-aligned, while the +-1 row shifts inside VMEM are static slices
-(which Mosaic supports unaligned).  Ghost/pad rows are never consumed:
-they only feed cells masked as outside the physical interior.
-
-All three streams (u slab, f block, output) move via explicit
-double-buffered DMA, overlapping with compute across the sequential grid.
-
-On non-TPU backends kernels run in interpreter mode (f64 parity tests).
+Row-padded ("rp") layout
+------------------------
+Operands carry PAD ghost rows above the physical rows and padding below
+up to ``padded_rows(ny, br) = PAD + blocks*br + PAD`` rows, with columns
+padded to a multiple of LANE (``pad2d`` / ``unpad2d``); physical row y
+sits at padded row y + PAD.  ``layout_br`` gives the block-row count; the
+downward leg's residual comes back parity-split per block of br rows
+([even rows; odd rows]), so injection restriction reads the even halves
+only (``transfer.restrict_ps``).  On a row-sharded mesh the PAD ghost rows
+hold the neighbours' boundary rows (fpr_tpu.solvers.dist_mg_ds) and every
+leg recomputes up to PAD-2 sweeps inside that halo, so a shard reproduces
+the single-device arithmetic on its own rows.  Ghost and pad cells only
+ever feed cells masked as outside the physical interior.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-PAD = 8  # ghost rows on top; also the sublane alignment quantum
-LANE = 128  # lane-dimension alignment: columns are padded to a multiple
+PAD = 8  # ghost rows above (and below) the block rows; halo depth on a mesh
+LANE = 128  # columns are padded to a multiple of this
 
 
-def _im32(*vals):
-    """x64-safe index map values: Mosaic requires i32 block indices."""
-    import jax.numpy as _jnp
-
-    return tuple(_jnp.asarray(v, _jnp.int32) for v in vals)
-
-
-def _on_tpu() -> bool:
-    return jax.default_backend() == "tpu"
-
-
-def _vmem_limit(scratch_bytes: int, nxp: int) -> int:
-    """Declared VMEM footprint: the measured-envelope default (100 MB;
-    127 MB for the widest layouts), raised only when the blocking's actual
-    scratch demands it — XLA schedules around the DECLARED footprint, and
-    blanket-raising it serialized neighboring ops (measured -32% on the NS
-    step graph, round 2)."""
-    base = (127 if nxp >= 8320 else 100) * 1024 * 1024
-    need = int(scratch_bytes * 1.3) + 8 * 1024 * 1024  # Mosaic spill slack
-    return min(127 * 1024 * 1024, max(base, need))
-
-
-def _pick_br(ny: int, nx: int, itemsize: int) -> int:
-    """Block rows: multiple of 16 (corr_smooth2_rp needs the coarse windows
-    sublane-aligned and a fixed fine/coarse row parity), sized so the
-    worst kernel's double-buffered scratch (~8.5 slab-equivalents for
-    smooth2r: 2x u-slab + 2x f-slab + 2x stacked 2-plane result) fits
-    VMEM, and balanced so the last block isn't mostly padding (e.g.
-    ny=513 with br=512 would process a second, 99%-pad block; balancing
-    gives br=272 with 3% waste).  Bigger blocks mean fewer grid steps:
-    the 2D legs pay ~8 us of scalar-core time per DMA start/wait, which
-    is the dominant cost at 4097^2 (measured round 1)."""
-    budget = 100 * 1024 * 1024
-    # exact cap (not power-of-2 halving: at 16385^2 halving left br at 128
-    # when 160 fits, costing 25% more latency-bound grid steps)
-    fit = int(budget / (8.5 * nx * itemsize)) - 2 * PAD
-    br_max = min(512, max(16, (fit // 16) * 16))
-    blocks = -(-ny // br_max)
-    return min(br_max, -(-(-(-ny // blocks)) // 16) * 16)
+def layout_br(ny: int) -> int:
+    """Block rows of the rp layout for an ny-row level: ny rounded up to a
+    multiple of 16, i.e. one block.  Multiples of 16 keep the fine/coarse
+    row parity of the upward leg's interpolation fixed; a row-sharded
+    level's local row count is already such a multiple and is its own
+    block."""
+    return -(-ny // 16) * 16
 
 
 def padded_rows(ny: int, br: int) -> int:
@@ -105,481 +69,178 @@ def unpad2d(ap, ny: int, nx: int | None = None):
     return ap[PAD : PAD + ny, :nx]
 
 
-def _stencil_kernel(
-    c_ref, u_hbm, f_hbm, out_hbm, acc_ref, slabs, fbufs, results, sem_u, sem_f, sem_out,
-    *, BR, ny, nx, nxp, h, alpha, mode, with_norm,
-):
-    """mode: 'smooth' (Jacobi update), 'residual' (write res), 'matvec'
-    (write (lap - c) u, ignoring f)."""
-    i = pl.program_id(0)
-    n_blocks = pl.num_programs(0)
-    slot = jax.lax.rem(i, jnp.asarray(2, i.dtype))
-    nslot = 1 - slot
+# ---------------------------------------------------------------------------
+# shared pieces
+# ---------------------------------------------------------------------------
 
-    def _i32(v):
-        return jnp.asarray(v, jnp.int32)
 
-    def copy_u(block, s):
-        block, s = _i32(block), _i32(s)
-        return pltpu.make_async_copy(
-            u_hbm.at[pl.ds(block * BR, BR + 2 * PAD), :], slabs.at[s], sem_u.at[s]
-        )
+def shift_rows(v, d: int):
+    """v at row-1 (d=-1) or row+1 (d=+1), edge rows duplicated (the
+    duplicates only feed masked cells)."""
+    if d < 0:
+        return jnp.concatenate([v[:1], v[:-1]], axis=0)
+    return jnp.concatenate([v[1:], v[-1:]], axis=0)
 
-    def copy_f(block, s):
-        block, s = _i32(block), _i32(s)
-        if mode == "smooth2":
-            # the chained sweep needs f on the +-1 halo rows too; fetch the
-            # same aligned halo window as u
-            src = f_hbm.at[pl.ds(block * BR, BR + 2 * PAD), :]
+
+def shift_cols(v, d: int):
+    """v at column-1 (d=-1) or column+1 (d=+1), edge columns duplicated."""
+    if d < 0:
+        return jnp.concatenate([v[:, :1], v[:, :-1]], axis=1)
+    return jnp.concatenate([v[:, 1:], v[:, -1:]], axis=1)
+
+
+def global_coords(shape, row_off=0, col_off=0):
+    """(gy, gx): global physical row/column of every rp cell.  row_off is
+    the global index of the first physical row (0 single-device; a traced
+    shard offset on a mesh), col_off the global column of lane 0 (negative
+    on a 2D mesh's left-edge shards, whose ghost lanes sit before the
+    domain)."""
+    gy = (jnp.asarray(row_off, jnp.int32) - PAD
+          + jax.lax.broadcasted_iota(jnp.int32, shape, 0))
+    gx = (jnp.asarray(col_off, jnp.int32)
+          + jax.lax.broadcasted_iota(jnp.int32, shape, 1))
+    return gy, gx
+
+
+def interior_mask(gy, gx, ny: int, nx: int):
+    return (gy > 0) & (gy < ny - 1) & (gx > 0) & (gx < nx - 1)
+
+
+def block_rows(x):
+    """The rows a leg owns: everything but the PAD ghost rows at both ends
+    (a shard's own rows on a mesh).  Reductions run over these only."""
+    return x[..., PAD : x.shape[-2] - PAD, :]
+
+
+def block_sumsq(x):
+    return jnp.sum(jnp.square(block_rows(x)))
+
+
+def _smoother_consts(c, h: float, alpha: float, dtype):
+    hh = jnp.asarray(h * h, dtype)
+    C = jnp.asarray(4.0, dtype) + jnp.asarray(c, dtype) * hh
+    h2 = jnp.asarray(1.0 / (h * h), dtype)
+    w = jnp.asarray(alpha, dtype) * (hh / C)
+    return C, h2, w
+
+
+class _Level:
+    """Per-call stencil context: masks and constants of one rp level."""
+
+    def __init__(self, shape, dtype, ny, nx, h, c, alpha, row_off=0,
+                 col_off=0):
+        self.gy, self.gx = global_coords(shape, row_off, col_off)
+        self.nx = nx
+        self.interior = interior_mask(self.gy, self.gx, ny, nx)
+        self.C, self.h2, self.w = _smoother_consts(c, h, alpha, dtype)
+        self.zero = jnp.zeros((), dtype)
+
+    def res(self, V, F):
+        nbr = (shift_rows(V, -1) + shift_rows(V, 1) + shift_cols(V, -1)
+               + shift_cols(V, 1))
+        return jnp.where(self.interior, (nbr - self.C * V) * self.h2 - F,
+                         self.zero)
+
+    def elim(self, V):
+        """Eliminated-BC smoothing step (apply_bcs correction cycles): the
+        side columns become copies of their interior neighbour, so the
+        cycle relaxes the same Neumann-constrained operator the outer
+        defect measures (see multigrid._ELIM_BC_SMOOTH).  The true defect
+        pass is untouched, so converged results keep reference
+        semantics."""
+        V = jnp.where(self.gx == 0, shift_cols(V, 1), V)
+        return jnp.where(self.gx == self.nx - 1, shift_cols(V, -1), V)
+
+    def sweeps(self, u, f, ns: int, elim: bool, zero_u: bool = False):
+        """ns damped-Jacobi sweeps.  Returns (u', residual that fed the
+        last sweep).  zero_u: u == 0 structurally, so the first residual
+        is -f on the interior (bitwise what the generic sweep gives)."""
+        if not 1 <= ns <= PAD - 2:
+            raise ValueError(f"1 <= ns <= {PAD - 2} sweeps per leg (got {ns})")
+        if zero_u:
+            r = jnp.where(self.interior, -f, self.zero)
+            u = self.w * r
         else:
-            src = f_hbm.at[pl.ds(block * BR + PAD, BR), :]
-        return pltpu.make_async_copy(src, fbufs.at[s], sem_f.at[s])
-
-    def copy_out(block, s):
-        block, s = _i32(block), _i32(s)
-        return pltpu.make_async_copy(
-            results.at[s], out_hbm.at[pl.ds(block * BR + PAD, BR), :], sem_out.at[s]
-        )
-
-    use_f = mode not in ("matvec", "matvec_dot")
-
-    @pl.when(i == 0)
-    def _():
-        copy_u(0, 0).start()
-        if use_f:
-            copy_f(0, 0).start()
-
-    @pl.when(i + 1 < n_blocks)
-    def _():
-        copy_u(i + 1, nslot).start()
-        if use_f:
-            copy_f(i + 1, nslot).start()
-
-    copy_u(i, slot).wait()
-    if use_f:
-        copy_f(i, slot).wait()
-
-    if mode != "matvec_dot":
-        @pl.when(i >= 2)
-        def _():
-            copy_out(i - 2, slot).wait()
-
-    slab = slabs.at[slot]
-    center = slab[PAD : PAD + BR, :]
-    up = slab[PAD - 1 : PAD - 1 + BR, :]
-    dn = slab[PAD + 1 : PAD + 1 + BR, :]
-    lf = jnp.concatenate([center[:, :1], center[:, :-1]], axis=1)
-    rt = jnp.concatenate([center[:, 1:], center[:, -1:]], axis=1)
-
-    dtype = center.dtype
-    c = c_ref[0, 0]
-    C = jnp.asarray(4.0, dtype) + c * jnp.asarray(h * h, dtype)
-    _h2 = jnp.asarray(1.0 / (h * h), dtype)
-    w = jnp.asarray(alpha, dtype) * (jnp.asarray(h * h, dtype) / C)
-
-    gy = i * BR + jax.lax.broadcasted_iota(jnp.int32, (BR, nxp), 0)
-    gx = jax.lax.broadcasted_iota(jnp.int32, (BR, nxp), 1)
-    interior = (gy > 0) & (gy < ny - 1) & (gx > 0) & (gx < nx - 1)
-
-    if mode == "smooth2":
-        # two chained damped-Jacobi sweeps in one HBM pass: sweep 1 on the
-        # halo-extended rows (their halo-2 neighbors are in the slab), sweep
-        # 2 on the block from the updated extension
-        E = BR + 2 * PAD
-        U = slab[:, :]
-        F = fbufs[slot, :, :]
-        um = jnp.concatenate([U[:1, :], U[:-1, :]], axis=0)
-        ud = jnp.concatenate([U[1:, :], U[-1:, :]], axis=0)
-        ul = jnp.concatenate([U[:, :1], U[:, :-1]], axis=1)
-        ur = jnp.concatenate([U[:, 1:], U[:, -1:]], axis=1)
-        gye = i * BR - PAD + jax.lax.broadcasted_iota(jnp.int32, (E, nxp), 0)
-        gxe = jax.lax.broadcasted_iota(jnp.int32, (E, nxp), 1)
-        int_e = (gye > 0) & (gye < ny - 1) & (gxe > 0) & (gxe < nx - 1)
-        res1 = jnp.where(
-            int_e, (um + ud + ul + ur - C * U) * _h2 - F, jnp.asarray(0.0, dtype)
-        )
-        u1 = U + w * res1
-
-        c1 = u1[PAD : PAD + BR, :]
-        up1 = u1[PAD - 1 : PAD - 1 + BR, :]
-        dn1 = u1[PAD + 1 : PAD + 1 + BR, :]
-        lf1 = jnp.concatenate([c1[:, :1], c1[:, :-1]], axis=1)
-        rt1 = jnp.concatenate([c1[:, 1:], c1[:, -1:]], axis=1)
-        res2 = jnp.where(
-            interior,
-            (up1 + dn1 + lf1 + rt1 - C * c1) * _h2 - F[PAD : PAD + BR, :],
-            jnp.asarray(0.0, dtype),
-        )
-        out = c1 + w * res2
-        if with_norm:
-            @pl.when(i == 0)
-            def _():
-                acc_ref[0, 0] = jnp.asarray(0.0, dtype)
-
-            acc_ref[0, 0] += jnp.sum(res2 * res2)
-    elif mode in ("matvec", "matvec_dot"):
-        val = (up + dn + lf + rt - 4.0 * center) * _h2 - c * center
-        out = jnp.where(interior, val, jnp.asarray(0.0, dtype))
-        if with_norm or mode == "matvec_dot":
-            # fused dot: acc = sum(x * Ax) over the interior (out is zero
-            # elsewhere) — the PCG step's curvature p.Ap.  matvec_dot is
-            # the dot-ONLY form: the PCG with true-residual replacement
-            # never consumes Ax itself (the ds defect pass recomputes the
-            # residual), so the output array is left unwritten — the pass
-            # reads one plane and writes nothing but the SMEM scalar.
-            @pl.when(i == 0)
-            def _():
-                acc_ref[0, 0] = jnp.asarray(0.0, dtype)
-
-            acc_ref[0, 0] += jnp.sum(center * out)
-    else:
-        fblk = fbufs[slot, :, :]
-        res = jnp.where(
-            interior,
-            (up + dn + lf + rt - C * center) * _h2 - fblk,
-            jnp.asarray(0.0, dtype),
-        )
-        if mode == "smooth":
-            out = center + jnp.asarray(alpha, dtype) * (jnp.asarray(h * h, dtype) / C) * res
-        else:
-            out = res
-        if with_norm:
-            @pl.when(i == 0)
-            def _():
-                acc_ref[0, 0] = jnp.asarray(0.0, dtype)
-
-            acc_ref[0, 0] += jnp.sum(res * res)
-
-    if mode != "matvec_dot":
-        results[slot, :, :] = out
-        copy_out(i, slot).start()
-
-        @pl.when(i == n_blocks - 1)
-        def _():
-            @pl.when(n_blocks >= 2)
-            def _():
-                copy_out(i - 1, nslot).wait()
-
-            copy_out(i, slot).wait()
-
-
-@functools.lru_cache(maxsize=256)
-def _build(ny, nx, dtype_name, BR, h, alpha, mode, with_norm, interpret):
-    dtype = jnp.dtype(dtype_name)
-    total = padded_rows(ny, BR)
-    nxp = padded_cols(nx)
-    n_blocks = (total - 2 * PAD) // BR
-    kernel = functools.partial(
-        _stencil_kernel,
-        BR=BR, ny=ny, nx=nx, nxp=nxp, h=h, alpha=alpha, mode=mode, with_norm=with_norm,
-    )
-    word = dtype.itemsize
-    return pl.pallas_call(
-        kernel,
-        grid=(n_blocks,),
-        in_specs=[
-            pl.BlockSpec((1, 1), lambda i: _im32(0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((total, nxp), lambda i: _im32(0, 0), memory_space=pl.ANY),
-            pl.BlockSpec((total, nxp), lambda i: _im32(0, 0), memory_space=pl.ANY),
-        ],
-        out_specs=[
-            pl.BlockSpec((total, nxp), lambda i: _im32(0, 0), memory_space=pl.ANY),
-            pl.BlockSpec((1, 1), lambda i: _im32(0, 0), memory_space=pltpu.SMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((total, nxp), dtype),
-            jax.ShapeDtypeStruct((1, 1), dtype),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((2, BR + 2 * PAD, nxp), dtype),
-            pltpu.VMEM(
-                (2, BR + 2 * PAD if mode == "smooth2" else BR, nxp), dtype
-            ),
-            pltpu.VMEM((2, BR, nxp), dtype),
-            pltpu.SemaphoreType.DMA((2,)),
-            pltpu.SemaphoreType.DMA((2,)),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=10 * ny * nx,
-            bytes_accessed=3 * word * ny * nx,
-            transcendentals=0,
-        ),
-        compiler_params=pltpu.CompilerParams(
-            # declare the measured envelope, not a blanket maximum: XLA
-            # schedules around the declared footprint, and over-declaring
-            # serializes neighboring ops (measured on the NS step graph)
-            vmem_limit_bytes=(127 if nxp >= 8320 else 100) * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )
-
-
-
-def _elim_copy(V, gx, nx):
-    """Eliminated-BC smoothing step (apply_bcs correction cycles): the side
-    columns become copies of their interior neighbor, so the cycle relaxes
-    the same Neumann-constrained operator the outer defect measures — the
-    ~0.75/cycle BC contraction penalty vanishes (measured: NS T Helmholtz
-    16 -> 10 outers at full scale, CLAUDE.md round-5).  Pure preconditioner
-    change: the true defect pass is untouched, so converged results keep
-    reference semantics.  Shared by all four fused legs (the stk and split
-    kernels must stay bitwise-identical)."""
-    vl = jnp.concatenate([V[:, :1], V[:, :-1]], axis=1)
-    vr = jnp.concatenate([V[:, 1:], V[:, -1:]], axis=1)
-    V = jnp.where(gx == 0, vr, V)
-    return jnp.where(gx == nx - 1, vl, V)
-
-def _smooth2r_kernel(
-    c_ref, u_hbm, f_hbm, out_hbm,
-    slabs, fbufs, results, sem_u, sem_f, sem_out,
-    *, BR, ny, nx, nxp, h, alpha, split_res, zero_u=False, ns=2, elim=False,
-):
-    """Fused V-cycle downward leg: ``ns`` chained damped-Jacobi sweeps AND
-    the post-chain residual in one HBM pass (one kernel call instead of
-    three — the per-call launch and per-DMA scalar overheads dominate these
-    latency-bound 2D passes).  Extra sweeps beyond 2 are nearly free
-    (VPU-only work on the slab already in VMEM; each consumes one
-    ghost-row ring, ns <= PAD-2).
-
-    split_res: write the residual plane PARITY-SPLIT per block ([even rows;
-    odd rows] instead of interleaved) so injection restriction's row pass
-    happens here for free (a sublane reshape in VMEM) — the consumer then
-    reads only the even half (transfer.restrict_ps), halving restriction
-    traffic and removing one full-array row pass per level."""
-    i = pl.program_id(0)
-    n_blocks = pl.num_programs(0)
-    slot = jax.lax.rem(i, jnp.asarray(2, i.dtype))
-    nslot = 1 - slot
-    E = BR + 2 * PAD
-
-    def _i32(v):
-        return jnp.asarray(v, jnp.int32)
-
-    def copy_u(block, s):
-        block, s = _i32(block), _i32(s)
-        return pltpu.make_async_copy(
-            u_hbm.at[pl.ds(block * BR, E), :], slabs.at[s], sem_u.at[s]
-        )
-
-    def copy_f(block, s):
-        block, s = _i32(block), _i32(s)
-        return pltpu.make_async_copy(
-            f_hbm.at[pl.ds(block * BR, E), :], fbufs.at[s], sem_f.at[s]
-        )
-
-    def copy_out(block, s):
-        block, s = _i32(block), _i32(s)
-        # one DMA drains both stacked result planes
-        return pltpu.make_async_copy(
-            results.at[s],
-            out_hbm.at[:, pl.ds(block * BR + PAD, BR), :],
-            sem_out.at[s],
-        )
-
-    @pl.when(i == 0)
-    def _():
-        if not zero_u:
-            copy_u(0, 0).start()
-        copy_f(0, 0).start()
-
-    @pl.when(i + 1 < n_blocks)
-    def _():
-        if not zero_u:
-            copy_u(i + 1, nslot).start()
-        copy_f(i + 1, nslot).start()
-
-    if not zero_u:
-        copy_u(i, slot).wait()
-    copy_f(i, slot).wait()
-
-    @pl.when(i >= 2)
-    def _():
-        copy_out(i - 2, slot).wait()
-
-    F = fbufs[slot, :, :]
-    dtype = F.dtype
-    c = c_ref[0, 0]
-    # global row offset of this shard's first physical row (0 single-device;
-    # a *traced* per-shard scalar in the distributed solver — runtime, so
-    # every shard shares one compiled kernel).  Exact in f32 up to 2^24.
-    off = c_ref[1, 0].astype(jnp.int32)
-    C = jnp.asarray(4.0, dtype) + c * jnp.asarray(h * h, dtype)
-    _h2 = jnp.asarray(1.0 / (h * h), dtype)
-    w = jnp.asarray(alpha, dtype) * (jnp.asarray(h * h, dtype) / C)
-
-    gy = off + i * BR - PAD + jax.lax.broadcasted_iota(jnp.int32, (E, nxp), 0)
-    # coff: global column of lane 0 (0 single-device; negative on a 2D
-    # mesh's left-edge shards, whose ghost lanes sit before the domain)
-    coff = c_ref[2, 0].astype(jnp.int32)
-    gx = coff + jax.lax.broadcasted_iota(jnp.int32, (E, nxp), 1)
-    interior = (gy > 0) & (gy < ny - 1) & (gx > 0) & (gx < nx - 1)
-
-    def res_of(V):
-        vm = jnp.concatenate([V[:1, :], V[:-1, :]], axis=0)
-        vp = jnp.concatenate([V[1:, :], V[-1:, :]], axis=0)
-        vl = jnp.concatenate([V[:, :1], V[:, :-1]], axis=1)
-        vr = jnp.concatenate([V[:, 1:], V[:, -1:]], axis=1)
-        return jnp.where(
-            interior, (vm + vp + vl + vr - C * V) * _h2 - F, jnp.asarray(0.0, dtype)
-        )
-
-    def eliml(V):
-        return _elim_copy(V, gx, nx)
-
-    assert 1 <= ns <= PAD - 2, ns
-    if zero_u:
-        # u == 0 structurally (coarse corrections / defect-correction
-        # top level): res_of(0) = -F on the interior, bitwise-identically
-        res1 = jnp.where(interior, -F, jnp.asarray(0.0, dtype))
-        u2 = w * res1
-    else:
-        U = slabs[slot, :, :]
-        u2 = U + w * res_of(U)      # valid rows 1..E-2
-    if elim:
-        u2 = eliml(u2)
-    for _ in range(ns - 1):
-        u2 = u2 + w * res_of(u2)    # each sweep eats one ring
+            r = self.res(u, f)
+            u = u + self.w * r
         if elim:
-            u2 = eliml(u2)
-    res = res_of(u2)                # valid rows ns+1..E-2-ns; PAD=8 >= ns+1
-
-    results[slot, 0, :, :] = u2[PAD : PAD + BR, :]
-    res_blk = res[PAD : PAD + BR, :]
-    if split_res:
-        # BR is even, so local row parity == global row parity: the even
-        # half IS the injection-restricted residual for this block's rows
-        pair = res_blk.reshape(BR // 2, 2, nxp)
-        results[slot, 1, : BR // 2, :] = pair[:, 0, :]
-        results[slot, 1, BR // 2 :, :] = pair[:, 1, :]
-    else:
-        results[slot, 1, :, :] = res_blk
-    copy_out(i, slot).start()
-
-    @pl.when(i == n_blocks - 1)
-    def _():
-        @pl.when(n_blocks >= 2)
-        def _():
-            copy_out(i - 1, nslot).wait()
-
-        copy_out(i, slot).wait()
+            u = self.elim(u)
+        for _ in range(ns - 1):
+            r = self.res(u, f)
+            u = u + self.w * r
+            if elim:
+                u = self.elim(u)
+        return u, r
 
 
-@functools.lru_cache(maxsize=256)
-def _build_s2r(ny, nx, dtype_name, BR, h, alpha, interpret, split_res=False,
-               zero_u=False, ny_mask=None, ns=2, nx_mask=None, elim=False):
-    # ny/nx drive the LOCAL layout (cells owned by this shard, plus ghost
-    # columns on a 2D mesh); ny_mask/nx_mask are the GLOBAL interior
-    # bounds (== ny/nx single-device) checked against off + row / coff + lane
-    dtype = jnp.dtype(dtype_name)
-    total = padded_rows(ny, BR)
-    nxp = padded_cols(nx)
-    n_blocks = (total - 2 * PAD) // BR
-    kernel = functools.partial(
-        _smooth2r_kernel,
-        BR=BR, ny=ny_mask if ny_mask is not None else ny,
-        nx=nx_mask if nx_mask is not None else nx, nxp=nxp,
-        h=h, alpha=alpha, split_res=split_res, zero_u=zero_u, ns=ns,
-        elim=elim,
-    )
-    scratch = dtype.itemsize * nxp * (
-        2 * (BR + 2 * PAD) * (1 if zero_u else 2) + 2 * 2 * BR
-    )
-    return pl.pallas_call(
-        kernel,
-        grid=(n_blocks,),
-        in_specs=[
-            pl.BlockSpec((3, 1), lambda i: _im32(0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((total, nxp), lambda i: _im32(0, 0), memory_space=pl.ANY),
-            pl.BlockSpec((total, nxp), lambda i: _im32(0, 0), memory_space=pl.ANY),
-        ],
-        out_specs=pl.BlockSpec(
-            (2, total, nxp), lambda i: _im32(0, 0, 0), memory_space=pl.ANY
-        ),
-        out_shape=jax.ShapeDtypeStruct((2, total, nxp), dtype),
-        scratch_shapes=[
-            pltpu.VMEM((2, BR + 2 * PAD, nxp), dtype),
-            pltpu.VMEM((2, BR + 2 * PAD, nxp), dtype),
-            pltpu.VMEM((2, 2, BR, nxp), dtype),
-            pltpu.SemaphoreType.DMA((2,)),
-            pltpu.SemaphoreType.DMA((2,)),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=30 * ny * nx,
-            bytes_accessed=4 * dtype.itemsize * ny * nx,
-            transcendentals=0,
-        ),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=_vmem_limit(scratch, nxp),
-        ),
-        interpret=interpret,
-    )
+def _parity_split(res, br: int):
+    """Per block of br rows: [even rows; odd rows].  br is even, so local
+    row parity equals global parity and the even halves are the
+    injection-restricted rows."""
+    total, nxp = res.shape
+    nb = (total - 2 * PAD) // br
+    body = res[PAD : PAD + nb * br].reshape(nb, br // 2, 2, nxp)
+    body = jnp.swapaxes(body, 1, 2).reshape(nb * br, nxp)
+    return jnp.concatenate([res[:PAD], body, res[PAD + nb * br :]], axis=0)
 
 
-def _scal2(c, row_off, dtype, col_off=0):
-    """(3, 1) SMEM scalars: [c, row_off, col_off] (offsets are the shard's
-    global row/column index of local row 0 / lane 0 — exact in f32 up to
-    2^24; col_off includes the ghost-column shift, so lane 0 maps to a
-    NEGATIVE global column on the leftmost shard and the interior mask
-    rejects it)."""
-    return jnp.stack(
-        [jnp.asarray(c, dtype), jnp.asarray(row_off, dtype),
-         jnp.asarray(col_off, dtype)]
-    ).reshape(3, 1)
+# ---------------------------------------------------------------------------
+# downward leg: ns smooths + residual
+# ---------------------------------------------------------------------------
 
 
 def smooth2r_rp(u_rp, f_rp, ny, nx, br, h, c, alpha=0.8):
-    """Two fused smooths plus the resulting residual, one HBM pass.
-
-    Returns (u_rp'', res_rp) — semantically identical to smooth2_rp followed
-    by residual_rp.  The results come back stacked (u at plane 0, res at
-    plane 1) to keep the output to one DMA per block.
-    """
-    call = _build_s2r(
-        ny, nx, jnp.dtype(u_rp.dtype).name, br, float(h), float(alpha),
-        not _on_tpu(),
-    )
-    out = call(_scal2(c, 0, u_rp.dtype), u_rp, f_rp)
-    return out[0], out[1]
+    """Two smooths plus the resulting residual.  Returns (u_rp'', res_rp)
+    — smooth2_rp followed by residual_rp."""
+    lv = _Level(u_rp.shape, u_rp.dtype, ny, nx, h, c, alpha)
+    u, _ = lv.sweeps(u_rp, f_rp, 2, False)
+    return u, lv.res(u, f_rp)
 
 
 def smooth2r_split_rp(u_rp, f_rp, ny, nx, br, h, c, alpha=0.8, zero_u=False,
                       row_off=0, ny_mask=None, ns=2, col_off=0, nx_mask=None,
                       elim=False):
-    """smooth2r with the residual plane parity-split per block ([even rows;
-    odd rows]) — the V-cycle fast path.  Returns (u_rp'', res_ps) where
-    res_ps feeds transfer.restrict_ps (the even halves ARE the injected
-    coarse rows, so restriction degenerates to a column pass).
+    """``ns`` smooths plus the residual, parity-split per block — the
+    V-cycle's downward leg.  Returns (u_rp'', res_ps) where res_ps feeds
+    transfer.restrict_ps (the even halves ARE the injected coarse rows).
 
     zero_u=True: the caller guarantees u == 0 (coarse corrections, the
-    defect-correction top level) — the kernel skips the u stream's DMA
-    entirely and evaluates the first sweep in closed form, bitwise-equal
-    to the generic path on a zero buffer.
+    defect-correction top level); u_rp is not read.
 
-    Distributed: ny is this shard's LOCAL row count (the layout); ny_mask
-    the GLOBAL row count and row_off the (traced) global index of local
-    row 0.  The shard's PAD ghost rows must hold the neighbors' boundary
-    rows (fpr_tpu.solvers.dist_mg_ds refreshes them via ppermute); one
-    8-row exchange supports up to ns = PAD-2 sweeps of in-kernel halo
-    recomputation bitwise.  On a 2D (y, x) mesh nx is the local layout
-    width INCLUDING ghost columns, nx_mask the global column count, and
-    col_off the global column of lane 0 (negative on left-edge shards)."""
-    call = _build_s2r(
-        ny, nx, jnp.dtype(u_rp.dtype).name, br, float(h), float(alpha),
-        not _on_tpu(), split_res=True, zero_u=zero_u, ny_mask=ny_mask, ns=ns,
-        nx_mask=nx_mask, elim=elim,
+    Distributed: ny/nx are this shard's LOCAL layout (nx including ghost
+    columns on a 2D mesh), ny_mask/nx_mask the GLOBAL grid, row_off the
+    global index of local physical row 0 and col_off the global column of
+    lane 0.  The shard's PAD ghost rows must hold the neighbours' boundary
+    rows (fpr_tpu.solvers.dist_mg_ds refreshes them via ppermute)."""
+    lv = _Level(f_rp.shape, f_rp.dtype, ny_mask or ny, nx_mask or nx, h, c,
+                alpha, row_off, col_off)
+    u, _ = lv.sweeps(u_rp, f_rp, ns, elim, zero_u=zero_u)
+    return u, _parity_split(lv.res(u, f_rp), br)
+
+
+def smooth2r_stk(L, ny, nx, br, h, c, alpha=0.8, zero_u=False, row_off=0,
+                 ny_mask=None, ns=2, elim=False):
+    """Downward leg on the stacked (2, total, nxp) level state L = [u | f].
+
+    Returns (L', res_ps): plane 0 = u after ``ns`` smooths, plane 1 = f
+    unchanged; res_ps the parity-split residual.  Identical to
+    smooth2r_split_rp on (L[0], L[1])."""
+    u, res_ps = smooth2r_split_rp(
+        L[0], L[1], ny, nx, br, h, c, alpha, zero_u=zero_u, row_off=row_off,
+        ny_mask=ny_mask, ns=ns, elim=elim,
     )
-    out = call(_scal2(c, row_off, u_rp.dtype, col_off), u_rp, f_rp)
-    return out[0], out[1]
+    return L.at[0].set(u), res_ps
+
+
+# ---------------------------------------------------------------------------
+# upward leg: prolongate + correct + ns smooths
+# ---------------------------------------------------------------------------
 
 
 def x_interleave_coarse(coarse, apply_bcs=False):
-    """jnp pre-step for the fused upward leg: bilinear-interpolate the
-    (zero-boundary-masked) coarse correction along x only, producing
-    fine-width rows at coarse-row resolution.  The y interpolation happens
-    inside the kernel (sublane-strided stores are Mosaic-supported; lane
-    interleaves are not)."""
+    """Bilinear-interpolate the (zero-boundary-masked) coarse correction
+    along x only, producing fine-width rows at coarse-row resolution; the
+    upward leg interpolates in y."""
     from fpr_tpu.core import bc as _bc
 
     c0 = _bc.zero_boundary_2d(coarse)
@@ -592,211 +253,21 @@ def x_interleave_coarse(coarse, apply_bcs=False):
     return rows
 
 
-def _corr_smooth2_kernel(
-    c_ref, u_hbm, f_hbm, corr_hbm, out_hbm, acc_ref,
-    slabs, fbufs, cbufs, results, sem_u, sem_f, sem_c, sem_out,
-    *, BR, ny, nx, nxp, h, alpha, with_norm, ns=2, elim=False,
-):
-    """Fused V-cycle upward leg: y-interpolation of the (x-pre-interleaved)
-    coarse correction, the subtraction, and ``ns`` post-smooths in one pass.
-
-    BR must be a multiple of 16 so the coarse windows stay sublane-aligned
-    and the fine/coarse row parity is fixed across blocks.
-    """
-    assert 1 <= ns <= PAD - 2, ns
-    i = pl.program_id(0)
-    n_blocks = pl.num_programs(0)
-    slot = jax.lax.rem(i, jnp.asarray(2, i.dtype))
-    nslot = 1 - slot
-    E = BR + 2 * PAD
-    CW = BR // 2 + 2 * PAD  # coarse window rows
-
-    def _i32(v):
-        return jnp.asarray(v, jnp.int32)
-
-    def copy_u(block, s):
-        block, s = _i32(block), _i32(s)
-        return pltpu.make_async_copy(
-            u_hbm.at[pl.ds(block * BR, E), :], slabs.at[s], sem_u.at[s]
-        )
-
-    def copy_f(block, s):
-        block, s = _i32(block), _i32(s)
-        return pltpu.make_async_copy(
-            f_hbm.at[pl.ds(block * BR, E), :], fbufs.at[s], sem_f.at[s]
-        )
-
-    def copy_c(block, s):
-        block, s = _i32(block), _i32(s)
-        return pltpu.make_async_copy(
-            corr_hbm.at[pl.ds(block * (BR // 2), CW), :], cbufs.at[s], sem_c.at[s]
-        )
-
-    def copy_out(block, s):
-        block, s = _i32(block), _i32(s)
-        return pltpu.make_async_copy(
-            results.at[s], out_hbm.at[pl.ds(block * BR + PAD, BR), :], sem_out.at[s]
-        )
-
-    @pl.when(i == 0)
-    def _():
-        copy_u(0, 0).start()
-        copy_f(0, 0).start()
-        copy_c(0, 0).start()
-
-    @pl.when(i + 1 < n_blocks)
-    def _():
-        copy_u(i + 1, nslot).start()
-        copy_f(i + 1, nslot).start()
-        copy_c(i + 1, nslot).start()
-
-    copy_u(i, slot).wait()
-    copy_f(i, slot).wait()
-    copy_c(i, slot).wait()
-
-    @pl.when(i >= 2)
-    def _():
-        copy_out(i - 2, slot).wait()
-
-    U = slabs[slot, :, :]
-    F = fbufs[slot, :, :]
-    CB = cbufs[slot, :, :]
-    dtype = U.dtype
-    c = c_ref[0, 0]
-    # shard row offset (0 single-device); must be EVEN so local fine-row
-    # parity equals global parity (the y-interpolation relies on it) — the
-    # distributed layout guarantees multiples of 16
-    off = c_ref[1, 0].astype(jnp.int32)
-    C4 = jnp.asarray(4.0, dtype) + c * jnp.asarray(h * h, dtype)
-    _h2 = jnp.asarray(1.0 / (h * h), dtype)
-    w = jnp.asarray(alpha, dtype) * (jnp.asarray(h * h, dtype) / C4)
-
-    # --- y-interpolate the correction onto the fine E-row window ---
-    # fine ext row p <-> global fine row g = i*BR - PAD + p (even base), so
-    # even p take coarse row g/2 = CB row p/2 + PAD/2; odd p take the
-    # midpoint of that row and the next.
-    half = PAD // 2
-    rowpair = CB[half : half + E // 2, :]
-    cb_dn = CB[half + 1 : half + 1 + E // 2, :]
-    rowmid = (rowpair + cb_dn) * 0.5
-    # sublane element-repeat (broadcast+reshape is Mosaic-supported; lane
-    # interleaves and non-128-wide strided stores are not), then pick by
-    # row parity: P[p] = rowpair[p//2] if p even else rowmid[p//2]
-    rp2 = jnp.broadcast_to(rowpair[:, None, :], (E // 2, 2, nxp)).reshape(E, nxp)
-    rm2 = jnp.broadcast_to(rowmid[:, None, :], (E // 2, 2, nxp)).reshape(E, nxp)
-    prow = jax.lax.broadcasted_iota(jnp.int32, (E, nxp), 0)
-    even = jax.lax.rem(prow, jnp.asarray(2, jnp.int32)) == 0
-    P = jnp.where(even, rp2, rm2)
-    U = U - P  # subtract the correction (multigrid.jl:139)
-
-    # --- two chained damped-Jacobi sweeps (as in smooth2) ---
-    gy = off + i * BR - PAD + jax.lax.broadcasted_iota(jnp.int32, (E, nxp), 0)
-    coff = c_ref[2, 0].astype(jnp.int32)
-    gx = coff + jax.lax.broadcasted_iota(jnp.int32, (E, nxp), 1)
-    interior = (gy > 0) & (gy < ny - 1) & (gx > 0) & (gx < nx - 1)
-
-    def res_of(V):
-        vm = jnp.concatenate([V[:1, :], V[:-1, :]], axis=0)
-        vp = jnp.concatenate([V[1:, :], V[-1:, :]], axis=0)
-        vl = jnp.concatenate([V[:, :1], V[:, :-1]], axis=1)
-        vr = jnp.concatenate([V[:, 1:], V[:, -1:]], axis=1)
-        return jnp.where(
-            interior, (vm + vp + vl + vr - C4 * V) * _h2 - F, jnp.asarray(0.0, dtype)
-        )
-
-    def eliml(V):
-        return _elim_copy(V, gx, nx)
-
-    u2 = eliml(U) if elim else U
-    res2 = None
-    for _ in range(ns):
-        res2 = res_of(u2)
-        u2 = u2 + w * res2
-        if elim:
-            u2 = eliml(u2)
-
-    results[slot, :, :] = u2[PAD : PAD + BR, :]
-
-    if with_norm:
-        @pl.when(i == 0)
-        def _():
-            acc_ref[0, 0] = jnp.asarray(0.0, dtype)
-
-        acc_ref[0, 0] += jnp.sum(
-            res2[PAD : PAD + BR, :] * res2[PAD : PAD + BR, :]
-        )
-
-    copy_out(i, slot).start()
-
-    @pl.when(i == n_blocks - 1)
-    def _():
-        @pl.when(n_blocks >= 2)
-        def _():
-            copy_out(i - 1, nslot).wait()
-
-        copy_out(i, slot).wait()
-
-
-@functools.lru_cache(maxsize=256)
-def _build_cs2(ny, nx, dtype_name, BR, h, alpha, with_norm, corr_rows, interpret,
-               ny_mask=None, ns=2, nx_mask=None, elim=False):
-    dtype = jnp.dtype(dtype_name)
-    total = padded_rows(ny, BR)
-    nxp = padded_cols(nx)
-    n_blocks = (total - 2 * PAD) // BR
-    kernel = functools.partial(
-        _corr_smooth2_kernel,
-        BR=BR, ny=ny_mask if ny_mask is not None else ny,
-        nx=nx_mask if nx_mask is not None else nx, nxp=nxp,
-        h=h, alpha=alpha, with_norm=with_norm, ns=ns, elim=elim,
-    )
-    return pl.pallas_call(
-        kernel,
-        grid=(n_blocks,),
-        in_specs=[
-            pl.BlockSpec((3, 1), lambda i: _im32(0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((total, nxp), lambda i: _im32(0, 0), memory_space=pl.ANY),
-            pl.BlockSpec((total, nxp), lambda i: _im32(0, 0), memory_space=pl.ANY),
-            pl.BlockSpec((corr_rows, nxp), lambda i: _im32(0, 0), memory_space=pl.ANY),
-        ],
-        out_specs=[
-            pl.BlockSpec((total, nxp), lambda i: _im32(0, 0), memory_space=pl.ANY),
-            pl.BlockSpec((1, 1), lambda i: _im32(0, 0), memory_space=pltpu.SMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((total, nxp), dtype),
-            jax.ShapeDtypeStruct((1, 1), dtype),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((2, BR + 2 * PAD, nxp), dtype),
-            pltpu.VMEM((2, BR + 2 * PAD, nxp), dtype),
-            pltpu.VMEM((2, BR // 2 + 2 * PAD, nxp), dtype),
-            pltpu.VMEM((2, BR, nxp), dtype),
-            pltpu.SemaphoreType.DMA((2,)),
-            pltpu.SemaphoreType.DMA((2,)),
-            pltpu.SemaphoreType.DMA((2,)),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=25 * ny * nx,
-            bytes_accessed=int(4.5 * dtype.itemsize) * ny * nx,
-            transcendentals=0,
-        ),
-        compiler_params=pltpu.CompilerParams(
-            # declare the measured envelope, not a blanket maximum: XLA
-            # schedules around the declared footprint, and over-declaring
-            # serializes neighboring ops (measured on the NS step graph)
-            vmem_limit_bytes=(127 if nxp >= 8320 else 100) * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )
-
-
 def corr_rows_needed(ny: int, br: int) -> int:
-    """Rows of the x-interleaved correction buffer corr_smooth2 consumes."""
+    """Rows of the x-interleaved correction buffer the upward leg reads."""
     total = padded_rows(ny, br)
     n_blocks = (total - 2 * PAD) // br
     return n_blocks * (br // 2) + 2 * PAD
+
+
+def _y_interleave(corrx_rp, total: int):
+    """Fine-row correction from the x-interleaved coarse buffer (coarse
+    row j at buffer row PAD + j): even padded rows R take buffer row
+    R/2 + PAD/2, odd rows the midpoint of that row and the next."""
+    half = PAD // 2
+    rowpair = corrx_rp[half : half + total // 2]
+    rowmid = (rowpair + corrx_rp[half + 1 : half + 1 + total // 2]) * 0.5
+    return jnp.stack([rowpair, rowmid], axis=1).reshape(total, -1)
 
 
 def corr_smooth2_raw(
@@ -804,42 +275,42 @@ def corr_smooth2_raw(
     alpha=0.8, with_norm=False, row_off=0, ny_mask=None, raw_acc=False, ns=2,
     col_off=0, nx_mask=None, elim=False,
 ):
-    """corr_smooth2 on a PREBUILT x-interleaved correction buffer: local
+    """Upward leg on a PREBUILT x-interleaved correction buffer: local
     coarse row j (fine-width, x-interleaved) at buffer row PAD + j, with
-    rows [PAD-4, PAD) / [PAD+nyc_local, ...) holding neighbor halo rows in
-    the distributed layout (zeros single-device).  Returns (u_rp'', acc)
-    where acc is sum(res2^2) over block rows (raw_acc) or the r_rms over
-    the GLOBAL (ny_mask or ny) x nx cell count."""
-    assert br % 16 == 0, br
-    call = _build_cs2(
-        ny, nx, jnp.dtype(u_rp.dtype).name, br,
-        float(h), float(alpha), bool(with_norm), corrx_rp.shape[0],
-        not _on_tpu(), ny_mask=ny_mask, ns=ns, nx_mask=nx_mask, elim=elim,
-    )
-    out, acc = call(_scal2(c, row_off, u_rp.dtype, col_off), u_rp, f_rp,
-                    corrx_rp)
+    rows [PAD-4, PAD) / [PAD+nyc_local, ...) holding neighbour halo rows in
+    the distributed layout (zeros single-device).  u -= y-interp(corr),
+    then ``ns`` smooths.  Returns (u_rp'', acc) where acc is None without
+    with_norm, else sum(res^2) of the residual that fed the last smooth
+    over the block rows (raw_acc) or that sum's r_rms over the GLOBAL
+    (ny_mask or ny) x (nx_mask or nx) cell count."""
+    if br % 16:
+        raise ValueError(f"the upward leg needs br % 16 == 0 (got {br})")
+    lv = _Level(u_rp.shape, u_rp.dtype, ny_mask or ny, nx_mask or nx, h, c,
+                alpha, row_off, col_off)
+    u = u_rp - _y_interleave(corrx_rp, u_rp.shape[0])
+    if elim:
+        u = lv.elim(u)
+    u, r = lv.sweeps(u, f_rp, ns, elim)
     if not with_norm:
-        return out, None
+        return u, None
+    acc = block_sumsq(r)
     if raw_acc:
-        return out, acc[0, 0]
-    return out, jnp.sqrt(acc[0, 0] / ((nx_mask or nx) * (ny_mask or ny)))
+        return u, acc
+    return u, jnp.sqrt(acc / ((nx_mask or nx) * (ny_mask or ny)))
 
 
 def corr_smooth2_rp(
     u_rp, f_rp, corr_phys, ny, nx, br, h, c,
     alpha=0.8, apply_bcs=False, with_norm=False, ns=2, elim=False,
 ):
-    """Fused upward leg: u -= prolongate(corr); ``ns`` smooths; optional
-    norm.
+    """Upward leg: u -= prolongate(corr); ``ns`` smooths; optional norm.
 
-    corr_phys is the coarse level's PHYSICAL array; the x direction is
-    interpolated here in XLA (cheap), the y direction inside the kernel.
-    Requires br % 16 == 0.  Returns (u_rp'', r_rms or None).
+    corr_phys is the coarse level's PHYSICAL array.  Requires br % 16 == 0.
+    Returns (u_rp'', r_rms or None).
     """
     corrx = x_interleave_coarse(corr_phys, apply_bcs=apply_bcs)
-    rows_needed = corr_rows_needed(ny, br)
-    nxp = padded_cols(nx)
-    corrx_rp = jnp.zeros((rows_needed, nxp), corrx.dtype)
+    corrx_rp = jnp.zeros((corr_rows_needed(ny, br), padded_cols(nx)),
+                         corrx.dtype)
     corrx_rp = corrx_rp.at[PAD : PAD + corrx.shape[0], :nx].set(corrx)
     return corr_smooth2_raw(
         u_rp, f_rp, corrx_rp, ny, nx, br, h, c,
@@ -847,69 +318,88 @@ def corr_smooth2_rp(
     )
 
 
-def _call(mode, u_rp, f_rp, ny, nx, br, h, c, alpha=0.8, with_norm=False):
-    dtype_name = jnp.dtype(u_rp.dtype).name
-    call = _build(
-        ny, nx, dtype_name, br, float(h), float(alpha),
-        mode, bool(with_norm), not _on_tpu(),
+def corr_smooth2_stk(L, corrx_rp, ny, nx, br, h, c, alpha=0.8,
+                     with_norm=False, row_off=0, ny_mask=None, ns=2,
+                     elim=False):
+    """Upward leg on the stacked level state and a PREBUILT x-interleaved
+    correction buffer (see corr_smooth2_raw).  Returns (L', r_rms or None)
+    with plane 0 = corrected+smoothed u, plane 1 unchanged."""
+    u, r_rms = corr_smooth2_raw(
+        L[0], L[1], corrx_rp, ny, nx, br, h, c, alpha=alpha,
+        with_norm=with_norm, row_off=row_off, ny_mask=ny_mask, ns=ns,
+        elim=elim,
     )
-    c_arr = jnp.full((1, 1), c, dtype=u_rp.dtype)
-    out, acc = call(c_arr, u_rp, f_rp if f_rp is not None else u_rp)
-    return out, acc[0, 0]
+    return L.at[0].set(u), r_rms
 
 
 # ---------------------------------------------------------------------------
-# row-padded API (used by the multigrid V-cycle)
+# single sweeps, residual and matvec on rp operands
 # ---------------------------------------------------------------------------
 
 
 def smooth_rp(u_rp, f_rp, ny, nx, br, h, c, alpha=0.8, with_norm=True):
-    """One fused damped-Jacobi smooth on row-padded operands.
+    """One damped-Jacobi smooth on row-padded operands.
 
     Returns (u_rp', r_rms or None); r_rms matches the reference convention
     sqrt(sum(res^2)/(nx*ny)) with res = 0 on the boundary ring
     (multigrid.jl:245-258).
     """
-    out, acc = _call("smooth", u_rp, f_rp, ny, nx, br, h, c, alpha, with_norm)
-    r_rms = jnp.sqrt(acc / (nx * ny)) if with_norm else None
-    return out, r_rms
+    lv = _Level(u_rp.shape, u_rp.dtype, ny, nx, h, c, alpha)
+    u, r = lv.sweeps(u_rp, f_rp, 1, False)
+    return u, (jnp.sqrt(block_sumsq(r) / (nx * ny)) if with_norm else None)
 
 
 def smooth2_rp(u_rp, f_rp, ny, nx, br, h, c, alpha=0.8, with_norm=True):
-    """Two chained damped-Jacobi smooths in one fused HBM pass (halo-2
-    recomputation on the block edges).  Returns (u_rp'', r_rms of the
-    second sweep's pre-update residual) — the same value two consecutive
-    ``smooth_rp`` calls would report, at ~55% of the traffic."""
-    out, acc = _call("smooth2", u_rp, f_rp, ny, nx, br, h, c, alpha, with_norm)
-    r_rms = jnp.sqrt(acc / (nx * ny)) if with_norm else None
-    return out, r_rms
+    """Two chained damped-Jacobi smooths.  Returns (u_rp'', r_rms of the
+    second sweep's pre-update residual) — the value two consecutive
+    ``smooth_rp`` calls would report."""
+    lv = _Level(u_rp.shape, u_rp.dtype, ny, nx, h, c, alpha)
+    u, r = lv.sweeps(u_rp, f_rp, 2, False)
+    return u, (jnp.sqrt(block_sumsq(r) / (nx * ny)) if with_norm else None)
 
 
 def residual_rp(u_rp, f_rp, ny, nx, br, h, c):
     """res = (nabla^2 - c)u - f, row-padded in and out."""
-    out, _ = _call("residual", u_rp, f_rp, ny, nx, br, h, c)
+    return _Level(u_rp.shape, u_rp.dtype, ny, nx, h, c, 0.0).res(u_rp, f_rp)
+
+
+def matvec_rp(x_rp, ny, nx, br, h, c, with_dot=False):
+    """Row-padded (nabla^2 - c) x.  with_dot additionally returns the
+    interior dot sum(x * Ax) — the PCG curvature p.Ap (reference matvec:
+    krylov.jl:7-34, which computes no dot; the host-summed sum(p.*p_hat)
+    there is krylov.jl:69)."""
+    dtype = x_rp.dtype
+    gy, gx = global_coords(x_rp.shape)
+    nbr = (shift_rows(x_rp, -1) + shift_rows(x_rp, 1) + shift_cols(x_rp, -1)
+           + shift_cols(x_rp, 1))
+    val = ((nbr - 4.0 * x_rp) * jnp.asarray(1.0 / (h * h), dtype)
+           - jnp.asarray(c, dtype) * x_rp)
+    out = jnp.where(interior_mask(gy, gx, ny, nx), val, jnp.zeros((), dtype))
+    if with_dot:
+        return out, jnp.sum(block_rows(x_rp * out))
     return out
 
 
-# ---------------------------------------------------------------------------
-# physical-layout drop-ins (parity tests, CG)
-# ---------------------------------------------------------------------------
+def matvec_dot_rp(x_rp, ny, nx, br, h, c):
+    """sum(x * (nabla^2 - c) x) over the interior (the PCG curvature)."""
+    return matvec_rp(x_rp, ny, nx, br, h, c, with_dot=True)[1]
 
 
-def _br_for(a):
-    return _pick_br(a.shape[0], a.shape[1], jnp.dtype(a.dtype).itemsize)
+# ---------------------------------------------------------------------------
+# physical-layout drop-ins (parity tests, ExecutionPolicy.PALLAS, CG)
+# ---------------------------------------------------------------------------
 
 
 def residual(u, f, h, c):
     ny, nx = u.shape
-    br = _br_for(u)
+    br = layout_br(ny)
     out = residual_rp(pad2d(u, br), pad2d(f, br), ny, nx, br, h, c)
     return unpad2d(out, ny, nx)
 
 
 def jacobi_step(u, f, h, c, alpha=0.8, with_norm=True):
     ny, nx = u.shape
-    br = _br_for(u)
+    br = layout_br(ny)
     out, r_rms = smooth_rp(
         pad2d(u, br), pad2d(f, br), ny, nx, br, h, c, alpha, with_norm
     )
@@ -918,518 +408,8 @@ def jacobi_step(u, f, h, c, alpha=0.8, with_norm=True):
 
 def matvec(x, hx, hy, c):
     """(nabla^2 - c) x; requires hx == hy (true everywhere in this code)."""
-    assert abs(hx - hy) < 1e-300 or hx == hy
+    if hx != hy:
+        raise ValueError(f"matvec needs hx == hy (got {hx}, {hy})")
     ny, nx = x.shape
-    br = _br_for(x)
-    out, _ = _call("matvec", pad2d(x, br), None, ny, nx, br, hx, c)
-    return unpad2d(out, ny, nx)
-
-
-def matvec_rp(x_rp, ny, nx, br, h, c, with_dot=False):
-    """Row-padded (nabla^2 - c) x.  with_dot additionally returns the
-    fused interior dot sum(x * Ax) — the PCG curvature p.Ap in the same
-    HBM pass (reference matvec: krylov.jl:7-34, which computes no dot;
-    the host-summed sum(p.*p_hat) there is krylov.jl:69)."""
-    out, acc = _call("matvec", x_rp, None, ny, nx, br, h, c,
-                     with_norm=with_dot)
-    if with_dot:
-        return out, acc
-    return out
-
-
-def matvec_dot_rp(x_rp, ny, nx, br, h, c):
-    """sum(x * (nabla^2 - c) x) over the interior, WITHOUT materializing
-    Ax: one plane of HBM read, one SMEM scalar out.  The PCG step's
-    curvature — its residual comes from the ds defect pass, so Ax itself
-    is dead and this pass skips the write entirely."""
-    _, acc = _call("matvec_dot", x_rp, None, ny, nx, br, h, c)
-    return acc
-
-
-
-# ---------------------------------------------------------------------------
-# stacked-aliased V-cycle legs (the round-3 fast path)
-#
-# Level state L = (2, total, nxp) f32: plane 0 = u, plane 1 = f (rhs).
-# Both legs take L and return the SAME buffer via input_output_aliases:
-# u/f travel in ONE two-chunk DMA per block, f persists untouched
-# (aliasing, zero traffic), and the u write lands on the buffer just
-# read.  The downward leg's parity-split residual is a separate output so
-# every aliased buffer has exactly ONE consumer — XLA inserts a full-size
-# defensive copy before donating an operand with any other live use
-# (measured: two 845 MB copies per outer iteration at 8193^2).
-#
-# Measured motivation (leg_probe, v5e): with >=4 concurrent DMA streams
-# the engine falls off ~600 -> ~400 GB/s; the stacked layout keeps every
-# leg at 3 streams.
-#
-# Aliasing creates a real RAW hazard: block i's u write overlaps block
-# i+1's slab read by PAD rows.  Discipline (as in pallas3d's stacked
-# kernel): input i+1 is awaited BEFORE output i starts, with S=3 input
-# slots so that wait lands a full grid step after the DMA was issued
-# (probe-verified: the race-close is then free).  Wide layouts sub-block
-# the kernel at br/2^k so the 3-slot scratch still fits VMEM (the
-# S=2 fallback serializes the in stream against the out stream).
-# interpret mode neither honors aliasing nor models DMA timing — wrappers
-# reconstruct plane 1 and tests must include a real-TPU bitwise check
-# (CLAUDE.md round-3 notes).
-# ---------------------------------------------------------------------------
-
-STK_S = 3  # input pipeline slots: race-close wait lands one full step late
-
-
-def _stk_bq(br: int, total: int, scratch_of) -> int:
-    """Kernel block rows for the stk kernels: the layout br, halved while
-    the 3-slot scratch exceeds the measured-safe envelope (~88 MB), as
-    long as halving keeps 16-alignment (corr parity/coarse windows) and
-    divisibility of the padded row count."""
-    bq = br
-    while (
-        scratch_of(bq) > 88 * 1024 * 1024
-        and bq % 32 == 0
-        and (total - 2 * PAD) % (bq // 2) == 0
-    ):
-        bq //= 2
-    return bq
-
-
-def _smooth2r_stk_kernel(
-    c_ref, L_hbm, out_hbm, res_hbm,
-    slabs, results, sem_in, sem_ou, sem_or,
-    *, BR, ny, nx, nxp, h, alpha, zero_u, S, ns, elim=False,
-):
-    """Stacked-aliased downward leg: ``ns`` damped-Jacobi sweeps + residual
-    (parity-split, separate output) in one HBM pass over the
-    (2, total, nxp) level state.
-
-    Bitwise-identical arithmetic to _smooth2r_kernel(split_res=True) at
-    ns=2.  Extra sweeps are VPU-only work on the slab already in VMEM —
-    the kernel is DMA-bound, so deeper smoothing (V(3,3)/V(4,4) cycles)
-    costs almost nothing per pass; each sweep consumes one ghost-row ring
-    (ns <= PAD-2 keeps the output rows valid).
-    zero_u: skip the u chunk entirely (slab carries f only, no RAW race).
-    """
-    assert 1 <= ns <= PAD - 2, ns
-    i = pl.program_id(0)
-    n_blocks = pl.num_programs(0)
-    islot = jax.lax.rem(i, jnp.asarray(S, i.dtype))
-    oslot = jax.lax.rem(i, jnp.asarray(2, i.dtype))
-    noslot = 1 - oslot
-    E = BR + 2 * PAD
-
-    def _i32(v):
-        return jnp.asarray(v, jnp.int32)
-
-    def cin(b):
-        b = _i32(b)
-        s = jax.lax.rem(b, jnp.asarray(S, jnp.int32))
-        if zero_u:
-            src = L_hbm.at[pl.ds(_i32(1), 1), pl.ds(b * BR, E), :]
-        else:
-            src = L_hbm.at[pl.ds(_i32(0), 2), pl.ds(b * BR, E), :]
-        return pltpu.make_async_copy(src, slabs.at[s], sem_in.at[s])
-
-    def cout_u(b, s):
-        b, s = _i32(b), _i32(s)
-        return pltpu.make_async_copy(
-            results.at[s, _i32(0)],
-            out_hbm.at[_i32(0), pl.ds(b * BR + PAD, BR), :],
-            sem_ou.at[s],
-        )
-
-    def cout_r(b, s):
-        b, s = _i32(b), _i32(s)
-        return pltpu.make_async_copy(
-            results.at[s, _i32(1)],
-            res_hbm.at[pl.ds(b * BR + PAD, BR), :],
-            sem_or.at[s],
-        )
-
-    if zero_u:
-        # no RAW hazard (reads plane 1, writes plane 0 + res): classic
-        # double-buffered schedule
-        @pl.when(i == 0)
-        def _():
-            cin(0).start()
-
-        @pl.when(i + 1 < n_blocks)
-        def _():
-            cin(i + 1).start()
-
-        cin(i).wait()
-    else:
-        # race-close schedule: input i+1 awaited before output i starts,
-        # issued S-1 steps ahead so the wait is free
-        @pl.when(i == 0)
-        def _():
-            cin(0).start()
-            cin(0).wait()
-            for k in range(1, S):
-                @pl.when(n_blocks > k)
-                def _(k=k):
-                    cin(k).start()
-
-        @pl.when(jnp.logical_and(i > 0, i + S - 1 < n_blocks))
-        def _():
-            cin(i + S - 1).start()
-
-    F = slabs[islot, 0, :, :] if zero_u else slabs[islot, 1, :, :]
-    dtype = F.dtype
-    c = c_ref[0, 0]
-    off = c_ref[1, 0].astype(jnp.int32)
-    C = jnp.asarray(4.0, dtype) + c * jnp.asarray(h * h, dtype)
-    _h2 = jnp.asarray(1.0 / (h * h), dtype)
-    w = jnp.asarray(alpha, dtype) * (jnp.asarray(h * h, dtype) / C)
-
-    gy = off + i * BR - PAD + jax.lax.broadcasted_iota(jnp.int32, (E, nxp), 0)
-    gx = jax.lax.broadcasted_iota(jnp.int32, (E, nxp), 1)
-    interior = (gy > 0) & (gy < ny - 1) & (gx > 0) & (gx < nx - 1)
-
-    def res_of(V):
-        vm = jnp.concatenate([V[:1, :], V[:-1, :]], axis=0)
-        vp = jnp.concatenate([V[1:, :], V[-1:, :]], axis=0)
-        vl = jnp.concatenate([V[:, :1], V[:, :-1]], axis=1)
-        vr = jnp.concatenate([V[:, 1:], V[:, -1:]], axis=1)
-        return jnp.where(
-            interior, (vm + vp + vl + vr - C * V) * _h2 - F, jnp.asarray(0.0, dtype)
-        )
-
-    def eliml(V):
-        return _elim_copy(V, gx, nx)
-
-    if zero_u:
-        res1 = jnp.where(interior, -F, jnp.asarray(0.0, dtype))
-        u2 = w * res1
-    else:
-        U = slabs[islot, 0, :, :]
-        u2 = U + w * res_of(U)
-    if elim:
-        u2 = eliml(u2)
-    for _ in range(ns - 1):
-        u2 = u2 + w * res_of(u2)
-        if elim:
-            u2 = eliml(u2)
-    res = res_of(u2)
-
-    # free the results slot BEFORE writing it: cout(i-2) reads the same
-    # slot and Mosaic does not order vector stores against in-flight DMAs
-    @pl.when(i >= 2)
-    def _():
-        cout_u(i - 2, oslot).wait()
-        cout_r(i - 2, oslot).wait()
-
-    results[oslot, _i32(0), :, :] = u2[PAD : PAD + BR, :]
-    res_blk = res[PAD : PAD + BR, :]
-    pair = res_blk.reshape(BR // 2, 2, nxp)
-    results[oslot, _i32(1), : BR // 2, :] = pair[:, 0, :]
-    results[oslot, _i32(1), BR // 2 :, :] = pair[:, 1, :]
-
-    if not zero_u:
-        # race-close: next block's slab fully on-chip before we overwrite
-        # the overlapping PAD rows of plane 0
-        @pl.when(i + 1 < n_blocks)
-        def _():
-            cin(i + 1).wait()
-
-    cout_u(i, oslot).start()
-    cout_r(i, oslot).start()
-
-    @pl.when(i == n_blocks - 1)
-    def _():
-        @pl.when(n_blocks >= 2)
-        def _():
-            cout_u(i - 1, noslot).wait()
-            cout_r(i - 1, noslot).wait()
-
-        cout_u(i, oslot).wait()
-        cout_r(i, oslot).wait()
-
-
-@functools.lru_cache(maxsize=256)
-def _build_s2r_stk(ny, nx, dtype_name, BR, h, alpha, interpret, zero_u=False,
-                   ny_mask=None, ns=2, elim=False):
-    dtype = jnp.dtype(dtype_name)
-    total = padded_rows(ny, BR)
-    nxp = padded_cols(nx)
-    S = 2 if zero_u else STK_S
-    chunks = 1 if zero_u else 2
-
-    def scratch_of(bq):
-        return dtype.itemsize * nxp * (
-            S * chunks * (bq + 2 * PAD) + 2 * 2 * bq
-        )
-
-    BQ = _stk_bq(BR, total, scratch_of)
-    n_blocks = (total - 2 * PAD) // BQ
-    kernel = functools.partial(
-        _smooth2r_stk_kernel,
-        BR=BQ, ny=ny_mask if ny_mask is not None else ny, nx=nx, nxp=nxp,
-        h=h, alpha=alpha, zero_u=zero_u, S=S, ns=ns, elim=elim,
-    )
-    return pl.pallas_call(
-        kernel,
-        grid=(n_blocks,),
-        in_specs=[
-            pl.BlockSpec((3, 1), lambda i: _im32(0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((2, total, nxp), lambda i: _im32(0, 0, 0), memory_space=pl.ANY),
-        ],
-        out_specs=[
-            pl.BlockSpec((2, total, nxp), lambda i: _im32(0, 0, 0), memory_space=pl.ANY),
-            pl.BlockSpec((total, nxp), lambda i: _im32(0, 0), memory_space=pl.ANY),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((2, total, nxp), dtype),
-            jax.ShapeDtypeStruct((total, nxp), dtype),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((S, chunks, BQ + 2 * PAD, nxp), dtype),
-            pltpu.VMEM((2, 2, BQ, nxp), dtype),
-            pltpu.SemaphoreType.DMA((S,)),
-            pltpu.SemaphoreType.DMA((2,)),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=10 * (ns + 1) * ny * nx,
-            bytes_accessed=4 * dtype.itemsize * ny * nx,
-            transcendentals=0,
-        ),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=_vmem_limit(scratch_of(BQ), nxp),
-        ),
-        input_output_aliases={1: 0},
-        interpret=interpret,
-    )
-
-
-def smooth2r_stk(L, ny, nx, br, h, c, alpha=0.8, zero_u=False, row_off=0,
-                 ny_mask=None, ns=2, elim=False):
-    """Stacked-aliased downward leg on the (2, total, nxp) level state.
-
-    Returns (L', res_ps): L' the same donated buffer on TPU with plane 0 =
-    u after ``ns`` smooths and plane 1 = f unchanged; res_ps the
-    parity-split residual (feeds transfer.restrict_ps).  Semantically
-    identical to smooth2r_split_rp on (L[0], L[1]) at ns=2."""
-    call = _build_s2r_stk(
-        ny, nx, jnp.dtype(L.dtype).name, br, float(h), float(alpha),
-        not _on_tpu(), zero_u=zero_u, ny_mask=ny_mask, ns=ns, elim=elim,
-    )
-    out, res_ps = call(_scal2(c, row_off, L.dtype), L)
-    if not _on_tpu():
-        # interpret mode does not honor aliasing: reconstruct plane 1
-        out = out.at[1].set(L[1])
-    return out, res_ps
-
-
-def _corr_smooth2_stk_kernel(
-    c_ref, L_hbm, corr_hbm, out_hbm, acc_ref,
-    slabs, cbufs, results, sem_in, sem_c, sem_out,
-    *, BR, ny, nx, nxp, h, alpha, with_norm, S, ns, elim=False,
-):
-    """Stacked-aliased upward leg: y-interpolate the (x-pre-interleaved)
-    coarse correction, subtract, ``ns`` post-smooths — writing u back over
-    plane 0 of the aliased level state.  Bitwise-identical arithmetic to
-    _corr_smooth2_kernel at ns=2; the norm accumulates the residual that
-    fed the LAST smooth (the same estimate semantics at every ns)."""
-    assert 1 <= ns <= PAD - 2, ns
-    i = pl.program_id(0)
-    n_blocks = pl.num_programs(0)
-    islot = jax.lax.rem(i, jnp.asarray(S, i.dtype))
-    oslot = jax.lax.rem(i, jnp.asarray(2, i.dtype))
-    noslot = 1 - oslot
-    E = BR + 2 * PAD
-    CW = BR // 2 + 2 * PAD
-
-    def _i32(v):
-        return jnp.asarray(v, jnp.int32)
-
-    def cin(b):
-        b = _i32(b)
-        s = jax.lax.rem(b, jnp.asarray(S, jnp.int32))
-        return pltpu.make_async_copy(
-            L_hbm.at[pl.ds(_i32(0), 2), pl.ds(b * BR, E), :], slabs.at[s], sem_in.at[s]
-        )
-
-    def cin_c(b):
-        b = _i32(b)
-        s = jax.lax.rem(b, jnp.asarray(S, jnp.int32))
-        return pltpu.make_async_copy(
-            corr_hbm.at[pl.ds(b * (BR // 2), CW), :], cbufs.at[s], sem_c.at[s]
-        )
-
-    def cout(b, s):
-        b, s = _i32(b), _i32(s)
-        return pltpu.make_async_copy(
-            results.at[s], out_hbm.at[_i32(0), pl.ds(b * BR + PAD, BR), :], sem_out.at[s]
-        )
-
-    @pl.when(i == 0)
-    def _():
-        cin(0).start()
-        cin_c(0).start()
-        cin(0).wait()
-        cin_c(0).wait()
-        for k in range(1, S):
-            @pl.when(n_blocks > k)
-            def _(k=k):
-                cin(k).start()
-                cin_c(k).start()
-
-    @pl.when(jnp.logical_and(i > 0, i + S - 1 < n_blocks))
-    def _():
-        cin(i + S - 1).start()
-        cin_c(i + S - 1).start()
-
-    U = slabs[islot, 0, :, :]
-    F = slabs[islot, 1, :, :]
-    CB = cbufs[islot, :, :]
-    dtype = U.dtype
-    c = c_ref[0, 0]
-    off = c_ref[1, 0].astype(jnp.int32)
-    C4 = jnp.asarray(4.0, dtype) + c * jnp.asarray(h * h, dtype)
-    _h2 = jnp.asarray(1.0 / (h * h), dtype)
-    w = jnp.asarray(alpha, dtype) * (jnp.asarray(h * h, dtype) / C4)
-
-    half = PAD // 2
-    rowpair = CB[half : half + E // 2, :]
-    cb_dn = CB[half + 1 : half + 1 + E // 2, :]
-    rowmid = (rowpair + cb_dn) * 0.5
-    rp2 = jnp.broadcast_to(rowpair[:, None, :], (E // 2, 2, nxp)).reshape(E, nxp)
-    rm2 = jnp.broadcast_to(rowmid[:, None, :], (E // 2, 2, nxp)).reshape(E, nxp)
-    prow = jax.lax.broadcasted_iota(jnp.int32, (E, nxp), 0)
-    even = jax.lax.rem(prow, jnp.asarray(2, jnp.int32)) == 0
-    P = jnp.where(even, rp2, rm2)
-    U = U - P
-
-    gy = off + i * BR - PAD + jax.lax.broadcasted_iota(jnp.int32, (E, nxp), 0)
-    gx = jax.lax.broadcasted_iota(jnp.int32, (E, nxp), 1)
-    interior = (gy > 0) & (gy < ny - 1) & (gx > 0) & (gx < nx - 1)
-
-    def res_of(V):
-        vm = jnp.concatenate([V[:1, :], V[:-1, :]], axis=0)
-        vp = jnp.concatenate([V[1:, :], V[-1:, :]], axis=0)
-        vl = jnp.concatenate([V[:, :1], V[:, :-1]], axis=1)
-        vr = jnp.concatenate([V[:, 1:], V[:, -1:]], axis=1)
-        return jnp.where(
-            interior, (vm + vp + vl + vr - C4 * V) * _h2 - F, jnp.asarray(0.0, dtype)
-        )
-
-    def eliml(V):
-        return _elim_copy(V, gx, nx)
-
-    u2 = eliml(U) if elim else U
-    res2 = None
-    for _ in range(ns):
-        res2 = res_of(u2)
-        u2 = u2 + w * res2
-        if elim:
-            u2 = eliml(u2)
-
-    # free the results slot BEFORE writing it (WAR vs the in-flight cout)
-    @pl.when(i >= 2)
-    def _():
-        cout(i - 2, oslot).wait()
-
-    results[oslot, :, :] = u2[PAD : PAD + BR, :]
-
-    if with_norm:
-        @pl.when(i == 0)
-        def _():
-            acc_ref[0, 0] = jnp.asarray(0.0, dtype)
-
-        acc_ref[0, 0] += jnp.sum(
-            res2[PAD : PAD + BR, :] * res2[PAD : PAD + BR, :]
-        )
-
-    # race-close: block i+1's slab (overlapping PAD rows of plane 0) must
-    # be on-chip before this block's u write starts
-    @pl.when(i + 1 < n_blocks)
-    def _():
-        cin(i + 1).wait()
-        cin_c(i + 1).wait()
-
-    cout(i, oslot).start()
-
-    @pl.when(i == n_blocks - 1)
-    def _():
-        @pl.when(n_blocks >= 2)
-        def _():
-            cout(i - 1, noslot).wait()
-
-        cout(i, oslot).wait()
-
-
-@functools.lru_cache(maxsize=256)
-def _build_cs2_stk(ny, nx, dtype_name, BR, h, alpha, with_norm, corr_rows,
-                   interpret, ny_mask=None, ns=2, elim=False):
-    dtype = jnp.dtype(dtype_name)
-    total = padded_rows(ny, BR)
-    nxp = padded_cols(nx)
-    S = STK_S
-
-    def scratch_of(bq):
-        return dtype.itemsize * nxp * (
-            S * 2 * (bq + 2 * PAD) + S * (bq // 2 + 2 * PAD) + 2 * bq
-        )
-
-    BQ = _stk_bq(BR, total, scratch_of)
-    n_blocks = (total - 2 * PAD) // BQ
-    kernel = functools.partial(
-        _corr_smooth2_stk_kernel,
-        BR=BQ, ny=ny_mask if ny_mask is not None else ny, nx=nx, nxp=nxp,
-        h=h, alpha=alpha, with_norm=with_norm, S=S, ns=ns, elim=elim,
-    )
-    return pl.pallas_call(
-        kernel,
-        grid=(n_blocks,),
-        in_specs=[
-            pl.BlockSpec((3, 1), lambda i: _im32(0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((2, total, nxp), lambda i: _im32(0, 0, 0), memory_space=pl.ANY),
-            pl.BlockSpec((corr_rows, nxp), lambda i: _im32(0, 0), memory_space=pl.ANY),
-        ],
-        out_specs=[
-            pl.BlockSpec((2, total, nxp), lambda i: _im32(0, 0, 0), memory_space=pl.ANY),
-            pl.BlockSpec((1, 1), lambda i: _im32(0, 0), memory_space=pltpu.SMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((2, total, nxp), dtype),
-            jax.ShapeDtypeStruct((1, 1), dtype),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((S, 2, BQ + 2 * PAD, nxp), dtype),
-            pltpu.VMEM((S, BQ // 2 + 2 * PAD, nxp), dtype),
-            pltpu.VMEM((2, BQ, nxp), dtype),
-            pltpu.SemaphoreType.DMA((S,)),
-            pltpu.SemaphoreType.DMA((S,)),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=25 * ny * nx,
-            bytes_accessed=int(4.5 * dtype.itemsize) * ny * nx,
-            transcendentals=0,
-        ),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=_vmem_limit(scratch_of(BQ), nxp),
-        ),
-        input_output_aliases={1: 0},
-        interpret=interpret,
-    )
-
-
-def corr_smooth2_stk(L, corrx_rp, ny, nx, br, h, c, alpha=0.8,
-                     with_norm=False, row_off=0, ny_mask=None, ns=2,
-                     elim=False):
-    """Stacked-aliased upward leg on a PREBUILT x-interleaved correction
-    buffer (see corr_smooth2_raw for its layout).  Returns (L', r_rms or
-    None) with plane 0 = corrected+smoothed u, plane 1 unchanged."""
-    assert br % 16 == 0, br
-    call = _build_cs2_stk(
-        ny, nx, jnp.dtype(L.dtype).name, br,
-        float(h), float(alpha), bool(with_norm), corrx_rp.shape[0],
-        not _on_tpu(), ny_mask=ny_mask, ns=ns, elim=elim,
-    )
-    out, acc = call(_scal2(c, row_off, L.dtype), L, corrx_rp)
-    if not _on_tpu():
-        out = out.at[1].set(L[1])
-    if not with_norm:
-        return out, None
-    return out, jnp.sqrt(acc[0, 0] / (nx * (ny_mask or ny)))
+    br = layout_br(ny)
+    return unpad2d(matvec_rp(pad2d(x, br), ny, nx, br, hx, c), ny, nx)

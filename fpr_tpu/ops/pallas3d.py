@@ -1,96 +1,56 @@
-"""Fused 3D dual-time diffusion step — Pallas TPU kernel.
+"""Fused 3D dual-time diffusion step on ghost-padded state.
 
-This is the TPU "kernel programming with shared memory" tier: the analog of
-the reference's CUDA shared-memory kernel
-(diffusion_3D_step_tau_shared_memory, part1_kernel_programming.jl:75-97),
-with a VMEM halo slab playing the role of the cooperative shared-memory tile.
-
-One kernel invocation performs, per z-slab of the grid:
+The analog of the reference's kernel tiers
+(diffusion_3D_step_tau[_shared_memory], part1_kernel_programming.jl:46-97).
+One call performs
 
     dHdtau = (Htau - Ht)/dt - D * nabla^2 Htau      (7-point stencil)
     Htau'  = Htau - dtau * dHdtau                    (interior cells only)
-    acc   += sum(dHdtau^2 over interior)             (for the convergence norm)
+    sumsq  = sum(dHdtau^2 over interior)             (the convergence norm)
 
-so a full pseudo-time iteration *including the residual norm* is a single
-pass over HBM: read Ht once, read Htau (1 + 2/BZ)x (the slab plus its
-one-plane halo above and below), write Htau' once — ~3.1-4 words/cell vs
-the reference GPU kernel's counted 6+1 (part1_kernel_programming.jl:70-72)
-and ~5 materialized by the XLA-fused jnp tier.
+as one elementwise expression plus its reduction, which XLA fuses into one
+or two passes over the state.  The K-step variants run K pseudo-time
+iterations per call on state with a K-deep z halo (the norm is the LAST
+iteration's; the driver checks every K iterations,
+DiffusionConfig.check_every=K).
 
-Design (chosen for Mosaic's tiling rules — the last two dims of any DMA
-slice must be tile-aligned, so halo windows can only be taken in the
-untiled z dimension):
+Layouts:
 
-- Blocks are full (y, x) planes, BZ deep: neighbor access in y and x is a
-  static in-VMEM shift; the z halo comes from a (BZ+2)-plane slab DMA'd
-  from HBM.
-- The evolving field is stored ghost-padded in z as (nz+2, ny, nx)
-  (``pad3d``/``unpad3d``): every slab window [z0, z0+BZ+2) is then in
-  range with the block centered at constant offset 1 — no edge-block
-  special cases.  Ghost planes are never consumed: they only feed cells
-  masked as physical boundary (Dirichlet faces keep their values, matching
-  the reference's interior guard, part1_kernel_programming.jl:47).
-- Ht stays unpadded (its pipelined blocks align with the physical grid);
-  the output is written ghost-padded via explicit DMA (z offsets are
-  unconstrained) so it feeds straight back in as the next Htau.
+- ``pad3d``/``unpad3d``: (nz+2, ny8, nx128) — one ghost plane on each
+  side of z, y/x padded up to multiples of 8/128 (the pad cells are masked
+  out of every update and norm); ``ghosts=(gy, gx)`` adds ghost blocks on
+  both sides of y/x for meshes that decompose those dimensions (refreshed
+  by parallel.halo.refresh_ghosts_padded).  ``pad_ht`` is the matching
+  ghost-free Ht layout.
+- ``pad3dk``/``pad_htk``: K-deep z halo for the K-step variant; on a
+  z-sharded mesh one K-plane halo exchange feeds K iterations, which
+  recompute the halo planes locally (parallel.halo.refresh_ghosts_zk).
+- ``stack_state_k``: Htau (plane-set 0) and Ht (plane-set 1) in one
+  (2, nz+2K, ny8, nx128) array, the single-device production carry.
 
-On non-TPU backends the kernel runs in interpreter mode (used by the f64
-parity tests); numerics are identical to fpr_tpu.ops.stencil3d.
+Ghost planes only feed cells masked as physical boundary (Dirichlet faces
+keep their values, matching the reference's interior guard,
+part1_kernel_programming.jl:47) and every call returns them unchanged.
+Numerics are identical to fpr_tpu.ops.stencil3d up to reassociation.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-
-def _im32(*vals):
-    """x64-safe index map values: Mosaic requires i32 block indices."""
-    import jax.numpy as _jnp
-
-    return tuple(_jnp.asarray(v, _jnp.int32) for v in vals)
-
-
-def _on_tpu() -> bool:
-    return jax.default_backend() == "tpu"
-
-
-def _pick_bz(nz: int, ny: int, nx: int, itemsize: int) -> int:
-    """Deepest z-block that fits the VMEM budget.
-
-    Resident buffers: 2 slabs (BZ+2 planes each) + 2 result buffers (BZ)
-    + pipelined Ht (2*BZ) = (6*BZ + 4) planes; keep under ~64 MiB
-    (v5e VMEM is large; the Mosaic limit is raised via CompilerParams).
-    """
-    plane = ny * nx * itemsize
-    budget = 64 * 1024 * 1024
-    best = 1
-    for b in range(1, nz + 1):
-        if nz % b == 0 and (6 * b + 4) * plane <= budget:
-            best = b
-    return best
 
 
 def _pad_yx(ny: int, nx: int) -> tuple[int, int]:
-    """Tile-aligned (sublane, lane) sizes: Mosaic DMA slices must either be
-    tile-multiples or span the full *padded* dimension, so the stored layout
-    rounds y to 8 and x to 128."""
+    """Stored (y, x) extents: y rounded up to 8, x to 128."""
     return -(-ny // 8) * 8, -(-nx // 128) * 128
 
 
 def pad3d(H, ghosts=(0, 0)):
-    """Physical (nz, ny, nx) -> ghost/tile-padded (nz+2, gy+ny8+gy, gx+nx128+gx).
-
-    One z-ghost plane on each side; y/x padded up to tile multiples (the pad
-    cells are masked out of every update and norm).  ghosts=(gy, gx) adds
-    tile-aligned ghost blocks on BOTH sides of y (gy in {0, 8}) and x
-    (gx in {0, 128}) for meshes that decompose those dimensions: the stencil
-    then reads neighbor values from padded row/lane gy-1 / gx-1 and
-    gy+ny / gx+nx, refreshed by parallel.halo.refresh_ghosts_padded."""
+    """Physical (nz, ny, nx) -> (nz+2, gy+ny8+gy, gx+nx128+gx): one z-ghost
+    plane on each side, y/x padded up to the stored extents, plus
+    ``ghosts=(gy, gx)`` ghost rows/columns on both sides of y/x for meshes
+    that decompose those dimensions (the stencil then reads neighbour
+    values from padded row/lane gy-1 / gx-1 and gy+ny / gx+nx)."""
     nz, ny, nx = H.shape
     gy, gx = ghosts
     ny8, nx128 = _pad_yx(ny, nx)
@@ -100,8 +60,7 @@ def pad3d(H, ghosts=(0, 0)):
 
 
 def pad_ht(H, ghosts=(0, 0)):
-    """Physical Ht -> tile-padded (nz, ...) (no z ghosts; y/x layout must
-    match pad3d's so the kernel's elementwise (Htau - Ht) lines up)."""
+    """Physical Ht -> (nz, ...) with pad3d's y/x layout (no z ghosts)."""
     nz, ny, nx = H.shape
     gy, gx = ghosts
     ny8, nx128 = _pad_yx(ny, nx)
@@ -109,7 +68,7 @@ def pad_ht(H, ghosts=(0, 0)):
 
 
 def unpad3d(Hp, shape=None, ghosts=(0, 0)):
-    """Ghost/tile-padded -> physical view."""
+    """Padded -> physical view."""
     if shape is None:
         return Hp[1:-1, :, :]
     nz, ny, nx = shape
@@ -118,17 +77,17 @@ def unpad3d(Hp, shape=None, ghosts=(0, 0)):
 
 
 def pad3dk(H, K=2):
-    """Physical -> K-deep-z-ghost/tile-padded (nz+2K, ny8, nx128) for the
-    temporally-fused K-iteration kernel."""
+    """Physical -> K-deep-z-ghost-padded (nz+2K, ny8, nx128) for the
+    K-iteration step."""
     nz, ny, nx = H.shape
     ny8, nx128 = _pad_yx(ny, nx)
     return jnp.pad(H, ((K, K), (0, ny8 - ny), (0, nx128 - nx)))
 
 
 def pad_htk(H, K=2):
-    """Physical Ht -> (K-1)-deep-z-ghost/tile-padded (nz+2K-2, ...): the
-    fused kernel's first sweep updates K-1 planes beyond each block, so it
-    reads Ht there too (ghost planes only feed masked cells)."""
+    """Physical Ht -> (K-1)-deep-z-ghost-padded (nz+2K-2, ...): the first
+    of K sweeps updates K-1 planes beyond the physical ones, so it reads
+    Ht there too (ghost planes only feed masked cells)."""
     nz, ny, nx = H.shape
     ny8, nx128 = _pad_yx(ny, nx)
     return jnp.pad(H, ((K - 1, K - 1), (0, ny8 - ny), (0, nx128 - nx)))
@@ -152,603 +111,101 @@ def unpad3d2(Hp, shape):
     return unpad3dk(Hp, shape, 2)
 
 
-def _shift_y(a, d):
-    """Static sublane shift with edge duplication (dup rows are masked)."""
-    if d == -1:
-        return jnp.concatenate([a[:, :1, :], a[:, :-1, :]], axis=1)
-    return jnp.concatenate([a[:, 1:, :], a[:, -1:, :]], axis=1)
+def _shift(a, axis: int, d: int):
+    """a at index-1 (d=-1) or index+1 (d=+1) along ``axis``, edge planes
+    duplicated (the duplicates only feed masked cells)."""
+    n = a.shape[axis]
+    if d < 0:
+        parts = (jax.lax.slice_in_dim(a, 0, 1, axis=axis),
+                 jax.lax.slice_in_dim(a, 0, n - 1, axis=axis))
+    else:
+        parts = (jax.lax.slice_in_dim(a, 1, n, axis=axis),
+                 jax.lax.slice_in_dim(a, n - 1, n, axis=axis))
+    return jnp.concatenate(parts, axis=axis)
 
 
-def _shift_x(a, d):
-    if d == -1:
-        return jnp.concatenate([a[:, :, :1], a[:, :, :-1]], axis=2)
-    return jnp.concatenate([a[:, :, 1:], a[:, :, -1:]], axis=2)
-
-
-def _dual_time_kernel(
-    bounds_ref, ht_ref, htau_hbm, out_hbm, acc_ref, slabs, results, sem_in, sem_out,
-    *, BZ, nz, ny, nx, nyp, nxp, gy_off, gx_off, dt, dtau, D, dx, dy, dz,
-):
-    """Double-buffered: while block i computes, block i+1's halo slab is
-    in flight and block i-1's output is draining, so the HBM streams stay
-    busy across the (sequential) grid steps."""
-    i = pl.program_id(0)
-    n_blocks = pl.num_programs(0)
-    z0 = i * BZ  # physical-block origin == padded slab origin
-    slot = jax.lax.rem(i, jnp.asarray(2, i.dtype))
-    nslot = 1 - slot
-
-    def _i32(v):
-        return jnp.asarray(v, jnp.int32)
-
-    def copy_in(block, s):
-        block, s = _i32(block), _i32(s)
-        return pltpu.make_async_copy(
-            htau_hbm.at[pl.ds(block * BZ, BZ + 2), :, :], slabs.at[s], sem_in.at[s]
-        )
-
-    def copy_out(block, s):
-        block, s = _i32(block), _i32(s)
-        return pltpu.make_async_copy(
-            results.at[s], out_hbm.at[pl.ds(block * BZ + 1, BZ), :, :], sem_out.at[s]
-        )
-
-    # prologue: kick off the first slab
-    @pl.when(i == 0)
-    def _():
-        copy_in(0, 0).start()
-
-    # prefetch next block's slab into the other slot
-    @pl.when(i + 1 < n_blocks)
-    def _():
-        copy_in(i + 1, nslot).start()
-
-    copy_in(i, slot).wait()
-    slab = slabs.at[slot]
-
-    # before overwriting this slot's result buffer, drain its previous copy
-    @pl.when(i >= 2)
-    def _():
-        copy_out(i - 2, slot).wait()
-
-    center = slab[1 : BZ + 1, :, :]
-    zm = slab[0:BZ, :, :]
-    zp = slab[2 : BZ + 2, :, :]
-    ym = _shift_y(center, -1)
-    yp = _shift_y(center, +1)
-    xm = _shift_x(center, -1)
-    xp = _shift_x(center, +1)
-
+def _sweep(center, zm, zp, ht, interior, dt, dtau, dx, dy, dz, D):
+    """One masked dual-time update of ``center`` (z neighbours given, y/x
+    neighbours by in-plane shifts).  Returns (updated, dHdtau)."""
     dtype = center.dtype
-    _dx2 = jnp.asarray(1.0 / (dx * dx), dtype)
-    _dy2 = jnp.asarray(1.0 / (dy * dy), dtype)
-    _dz2 = jnp.asarray(1.0 / (dz * dz), dtype)
-    _dt = jnp.asarray(1.0 / dt, dtype)
-
     lap = (
-        (xp - 2.0 * center + xm) * _dx2
-        + (yp - 2.0 * center + ym) * _dy2
-        + (zp - 2.0 * center + zm) * _dz2
+        (_shift(center, 2, 1) - 2.0 * center + _shift(center, 2, -1))
+        * jnp.asarray(1.0 / (dx * dx), dtype)
+        + (_shift(center, 1, 1) - 2.0 * center + _shift(center, 1, -1))
+        * jnp.asarray(1.0 / (dy * dy), dtype)
+        + (zp - 2.0 * center + zm) * jnp.asarray(1.0 / (dz * dz), dtype)
     )
-    dHdtau = (center - ht_ref[:, :, :]) * _dt - jnp.asarray(D, dtype) * lap
-
-    # mask of updateable cells (ghost and y/x tile-pad cells excluded).
-    # All six bounds are dynamic physical coordinates: (1, n-2) per axis on
-    # a single device, shard-dependent when that axis is decomposed over
-    # the mesh (global faces only — see parallel.halo.mask_bounds)
-    gz = z0 + jax.lax.broadcasted_iota(jnp.int32, (BZ, nyp, nxp), 0)
-    gy = jax.lax.broadcasted_iota(jnp.int32, (BZ, nyp, nxp), 1) - gy_off
-    gx = jax.lax.broadcasted_iota(jnp.int32, (BZ, nyp, nxp), 2) - gx_off
-    interior = (
-        (gz >= bounds_ref[0]) & (gz <= bounds_ref[1])
-        & (gy >= bounds_ref[2]) & (gy <= bounds_ref[3])
-        & (gx >= bounds_ref[4]) & (gx <= bounds_ref[5])
-    )
-
-    dHdtau = jnp.where(interior, dHdtau, jnp.asarray(0.0, dtype))
-    results[slot, :, :, :] = center - jnp.asarray(dtau, dtype) * dHdtau
-
-    # scalar accumulator revisited by every (sequential) grid step
-    @pl.when(i == 0)
-    def _():
-        acc_ref[0, 0] = jnp.asarray(0.0, dtype)
-
-    acc_ref[0, 0] += jnp.sum(dHdtau * dHdtau)
-
-    copy_out(i, slot).start()
-
-    # epilogue: drain every outstanding output copy
-    @pl.when(i == n_blocks - 1)
-    def _():
-        @pl.when(n_blocks >= 2)
-        def _():
-            copy_out(i - 1, nslot).wait()
-
-        copy_out(i, slot).wait()
+    dH = (center - ht) * jnp.asarray(1.0 / dt, dtype) - jnp.asarray(D, dtype) * lap
+    dH = jnp.where(interior, dH, jnp.zeros((), dtype))
+    return center - jnp.asarray(dtau, dtype) * dH, dH
 
 
-def _dual_timek_kernel(
-    zbounds_ref, ht_hbm, htau_hbm, out_hbm, acc_ref,
-    slabs, htbufs, results, sem_in, sem_ht, sem_out,
-    *, K, BZ, nz, ny, nx, nyp, nxp, dt, dtau, D, dx, dy, dz,
-):
-    """Temporally fused: K pseudo-time iterations per HBM pass.
-
-    The state carries a K-deep z halo; sweep j (j = 1..K) updates the block
-    plus K-j planes on each side, entirely in VMEM, from sweep j-1's
-    result.  Per-iteration traffic drops to ~((3BZ + 8K - 6)/BZ)/K
-    words/cell (slab (BZ+2K) + Ht (BZ+2K-2) + out BZ, amortized over K
-    iterations) — the 1/K temporal-fusion lever on an already
-    bandwidth-bound kernel.  The convergence norm is the LAST iteration's;
-    the driver checks every K iterations (DiffusionConfig.check_every=K).
-    """
-    i = pl.program_id(0)
-    n_blocks = pl.num_programs(0)
-    slot = jax.lax.rem(i, jnp.asarray(2, i.dtype))
-    nslot = 1 - slot
-    HT = BZ + 2 * K - 2  # ht window planes
-
-    def _i32(v):
-        return jnp.asarray(v, jnp.int32)
-
-    def copy_in(block, s):
-        block, s = _i32(block), _i32(s)
-        return pltpu.make_async_copy(
-            htau_hbm.at[pl.ds(block * BZ, BZ + 2 * K), :, :], slabs.at[s], sem_in.at[s]
-        )
-
-    def copy_ht(block, s):
-        block, s = _i32(block), _i32(s)
-        return pltpu.make_async_copy(
-            ht_hbm.at[pl.ds(block * BZ, HT), :, :], htbufs.at[s], sem_ht.at[s]
-        )
-
-    def copy_out(block, s):
-        block, s = _i32(block), _i32(s)
-        return pltpu.make_async_copy(
-            results.at[s], out_hbm.at[pl.ds(block * BZ + K, BZ), :, :], sem_out.at[s]
-        )
-
-    @pl.when(i == 0)
-    def _():
-        copy_in(0, 0).start()
-        copy_ht(0, 0).start()
-
-    @pl.when(i + 1 < n_blocks)
-    def _():
-        copy_in(i + 1, nslot).start()
-        copy_ht(i + 1, nslot).start()
-
-    copy_in(i, slot).wait()
-    copy_ht(i, slot).wait()
-
-    @pl.when(i >= 2)
-    def _():
-        copy_out(i - 2, slot).wait()
-
-    slab = slabs.at[slot]
-    ht = htbufs[slot, :, :, :]  # physical planes [z0-(K-1), z0+BZ+K-1)
-    dtype = ht.dtype
-    _dx2 = jnp.asarray(1.0 / (dx * dx), dtype)
-    _dy2 = jnp.asarray(1.0 / (dy * dy), dtype)
-    _dz2 = jnp.asarray(1.0 / (dz * dz), dtype)
-    _dt = jnp.asarray(1.0 / dt, dtype)
-    D_ = jnp.asarray(D, dtype)
-    dtau_ = jnp.asarray(dtau, dtype)
-    z0 = i * BZ
-
-    def sweep(center, zm, zp, ht_c, gz0):
-        """center/zm/zp: m-plane windows with phys base gz0; returns the
-        updated m-plane window and its dH."""
-        ym = _shift_y(center, -1)
-        yp = _shift_y(center, +1)
-        xm = _shift_x(center, -1)
-        xp = _shift_x(center, +1)
-        lap = (
-            (xp - 2.0 * center + xm) * _dx2
-            + (yp - 2.0 * center + ym) * _dy2
-            + (zp - 2.0 * center + zm) * _dz2
-        )
-        dH = (center - ht_c) * _dt - D_ * lap
-        gz = gz0 + jax.lax.broadcasted_iota(jnp.int32, center.shape, 0)
-        gy = jax.lax.broadcasted_iota(jnp.int32, center.shape, 1)
-        gx = jax.lax.broadcasted_iota(jnp.int32, center.shape, 2)
-        interior = (
-            (gz >= zbounds_ref[0]) & (gz <= zbounds_ref[1])
-            & (gy > 0) & (gy < ny - 1)
-            & (gx > 0) & (gx < nx - 1)
-        )
-        dH = jnp.where(interior, dH, jnp.asarray(0.0, dtype))
-        return center - dtau_ * dH, dH
-
-    # sweep j consumes a (BZ + 2(K-j) + 2)-plane window and produces the
-    # (BZ + 2(K-j))-plane window with phys base z0 - (K-j); the ht slice
-    # for sweep j starts at ht-window row j-1.  Sweep 1 slices the scratch
-    # REF (three overlapping lazy loads) rather than materializing the
-    # whole (BZ+2K)-window as a value — lower register pressure.
-    m = BZ + 2 * (K - 1)
-    u, dH = sweep(
-        slab[1 : 1 + m], slab[0:m], slab[2 : 2 + m],
-        ht[0:m], z0 - (K - 1),
-    )
-    for j in range(2, K + 1):
-        m = BZ + 2 * (K - j)
-        u, dH = sweep(
-            u[1 : 1 + m], u[0:m], u[2 : 2 + m],
-            ht[j - 1 : j - 1 + m], z0 - (K - j),
-        )
-    results[slot, :, :, :] = u
-
-    @pl.when(i == 0)
-    def _():
-        acc_ref[0, 0] = jnp.asarray(0.0, dtype)
-
-    acc_ref[0, 0] += jnp.sum(dH * dH)
-
-    copy_out(i, slot).start()
-
-    @pl.when(i == n_blocks - 1)
-    def _():
-        @pl.when(n_blocks >= 2)
-        def _():
-            copy_out(i - 1, nslot).wait()
-
-        copy_out(i, slot).wait()
+def _interior(shape, gz0, z_lo, z_hi, ny, nx, gy_off=0, gx_off=0,
+              yx_bounds=None):
+    """Updateable cells of a (planes, y, x) window whose first plane is
+    physical z = gz0.  y/x bounds default to the single-device interior."""
+    gz = gz0 + jax.lax.broadcasted_iota(jnp.int32, shape, 0)
+    gy = jax.lax.broadcasted_iota(jnp.int32, shape, 1) - gy_off
+    gx = jax.lax.broadcasted_iota(jnp.int32, shape, 2) - gx_off
+    ylo, yhi, xlo, xhi = yx_bounds or (1, ny - 2, 1, nx - 2)
+    return ((gz >= z_lo) & (gz <= z_hi) & (gy >= ylo) & (gy <= yhi)
+            & (gx >= xlo) & (gx <= xhi))
 
 
-@functools.lru_cache(maxsize=64)
-def _build_callk(shape, dtype_name, K, BZ, dt, dtau, dx, dy, dz, D, interpret):
+def _k_sweeps(Htau_k, ht_of, K, shape, z_bounds, kw):
+    """K chained sweeps on a K-deep-z-ghost-padded window: sweep j updates
+    the nz + 2(K-j) planes with physical base -(K-j) from sweep j-1's
+    window (ht_of(j, m) gives the matching Ht planes), so the final window
+    is exactly the physical planes.  Returns (Htau_k', sumsq of the LAST
+    sweep's dHdtau)."""
     nz, ny, nx = shape
-    nyp, nxp = _pad_yx(ny, nx)
-    dtype = jnp.dtype(dtype_name)
-    grid = (nz // BZ,)
-
-    kernel = functools.partial(
-        _dual_timek_kernel,
-        K=K, BZ=BZ, nz=nz, ny=ny, nx=nx, nyp=nyp, nxp=nxp,
-        dt=dt, dtau=dtau, D=D, dx=dx, dy=dy, dz=dz,
-    )
-    word = dtype.itemsize
-    return pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((2,), lambda i: _im32(0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((nz + 2 * K - 2, nyp, nxp), lambda i: _im32(0, 0, 0), memory_space=pl.ANY),
-            pl.BlockSpec((nz + 2 * K, nyp, nxp), lambda i: _im32(0, 0, 0), memory_space=pl.ANY),
-        ],
-        out_specs=[
-            pl.BlockSpec((nz + 2 * K, nyp, nxp), lambda i: _im32(0, 0, 0), memory_space=pl.ANY),
-            pl.BlockSpec((1, 1), lambda i: _im32(0, 0), memory_space=pltpu.SMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((nz + 2 * K, nyp, nxp), dtype),
-            jax.ShapeDtypeStruct((1, 1), dtype),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((2, BZ + 2 * K, nyp, nxp), dtype),
-            pltpu.VMEM((2, BZ + 2 * K - 2, nyp, nxp), dtype),
-            pltpu.VMEM((2, BZ, nyp, nxp), dtype),
-            pltpu.SemaphoreType.DMA((2,)),
-            pltpu.SemaphoreType.DMA((2,)),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=K * 27 * nz * ny * nx,
-            bytes_accessed=4 * word * nz * ny * nx,
-            transcendentals=0,
-        ),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=110 * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )
-
-
-def _pick_bzk(nz: int, nyp: int, nxp: int, itemsize: int, K: int) -> int:
-    """Deepest divisor-of-nz block depth whose K-sweep working set
-    (double-buffered slab (BZ+2K) + ht (BZ+2K-2) + out BZ, plus ~2 sweep
-    temporaries) fits the VMEM budget."""
-    plane = nyp * nxp * itemsize
-    budget = 88 * 1024 * 1024
-    best = 1
-    for b in range(1, nz + 1):
-        if nz % b == 0 and (8 * b + 12 * K) * plane <= budget:
-            best = b
-    return best
+    if z_bounds is None:
+        z_bounds = (1, nz - 2)
+    z_lo = jnp.asarray(z_bounds[0], jnp.int32)
+    z_hi = jnp.asarray(z_bounds[1], jnp.int32)
+    u = Htau_k
+    dH = None
+    for j in range(1, K + 1):
+        m = nz + 2 * (K - j)
+        center = u[1 : 1 + m]
+        inter = _interior(center.shape, -(K - j), z_lo, z_hi, ny, nx)
+        u, dH = _sweep(center, u[0:m], u[2 : 2 + m], ht_of(j, m), inter, **kw)
+    return Htau_k.at[K : K + nz].set(u), jnp.sum(dH * dH)
 
 
 def dual_time_stepk_padded(
     Ht_paddedk, Htau_paddedk, shape, dt, dtau, dx, dy, dz, D,
-    K=2, block_z=None, z_bounds=None,
+    K=2, z_bounds=None,
 ):
-    """K fused pseudo-time iterations on K-deep-ghost-padded state.
+    """K pseudo-time iterations on K-deep-ghost-padded state.
 
     Ht_paddedk is ``pad_htk``-shaped (nz+2K-2, ny8, nx128); Htau_paddedk is
-    ``pad3dk``-shaped (nz+2K, ny8, nx128).  Returns (Htau_paddedk', sumsq
-    of the LAST iteration's dHdtau).
+    ``pad3dk``-shaped (nz+2K, ny8, nx128).  z_bounds: inclusive physical z
+    range of updateable planes (default the single-device interior; a
+    z-sharded caller extends it into the ghost planes to recompute the
+    halo).  Returns (Htau_paddedk', sumsq of the LAST iteration's
+    dHdtau).
     """
-    nz, ny, nx = shape
-    nyp, nxp = _pad_yx(ny, nx)
-    BZ = block_z or _pick_bzk(
-        nz, nyp, nxp, jnp.dtype(Ht_paddedk.dtype).itemsize, K
+    kw = dict(dt=dt, dtau=dtau, dx=dx, dy=dy, dz=dz, D=D)
+    return _k_sweeps(
+        Htau_paddedk, lambda j, m: Ht_paddedk[j - 1 : j - 1 + m], K, shape,
+        z_bounds, kw,
     )
-    call = _build_callk(
-        tuple(shape), jnp.dtype(Ht_paddedk.dtype).name, int(K), BZ,
-        float(dt), float(dtau), float(dx), float(dy), float(dz), float(D),
-        not _on_tpu(),
-    )
-    if z_bounds is None:
-        zb = jnp.asarray([1, nz - 2], jnp.int32)
-    else:
-        zb = jnp.stack(
-            [jnp.asarray(z_bounds[0], jnp.int32), jnp.asarray(z_bounds[1], jnp.int32)]
-        )
-    out, acc = call(zb, Ht_paddedk, Htau_paddedk)
-    return out, acc[0, 0]
 
 
 def dual_time_step2_padded(
-    Ht_padded2, Htau_padded2, shape, dt, dtau, dx, dy, dz, D,
-    block_z=None, z_bounds=None,
+    Ht_padded2, Htau_padded2, shape, dt, dtau, dx, dy, dz, D, z_bounds=None,
 ):
-    """TWO fused pseudo-time iterations (the K=2 case of
+    """Two pseudo-time iterations (the K=2 case of
     ``dual_time_stepk_padded``, kept as the original entry point)."""
     return dual_time_stepk_padded(
         Ht_padded2, Htau_padded2, shape, dt, dtau, dx, dy, dz, D,
-        K=2, block_z=block_z, z_bounds=z_bounds,
+        K=2, z_bounds=z_bounds,
     )
-
-
-# ---------------------------------------------------------------------------
-# Stacked-state K-fused kernel: Htau and Ht in ONE HBM array
-# ---------------------------------------------------------------------------
-#
-# At 512^3 / BZ=8 the K-kernel runs 64 grid steps; each async-copy
-# start/wait costs ~8 us of scalar-core time, and with three streams the
-# scalar core is intermittently the critical path.  Stacking Htau (plane-
-# set 0) and Ht (plane-set 1) into one (2, nz+2K, nyp, nxp) array makes
-# the input ONE window DMA, and aliasing the output onto the input buffer
-# lets the constant Ht planes and the ghost planes persist with zero
-# copies — the kernel DMA-writes only the updated Htau block rows.
-
-
-def _dual_timek_stacked_kernel(
-    zbounds_ref, st_hbm, out_hbm, acc_ref,
-    slabs, results, sem_in, sem_out,
-    *, K, BZ, YC, nz, ny, nx, nyp, nxp, dt, dtau, D, dx, dy, dz,
-):
-    i = pl.program_id(0)
-    n_blocks = pl.num_programs(0)
-    slot = jax.lax.rem(i, jnp.asarray(2, i.dtype))
-    nslot = 1 - slot
-
-    def _i32(v):
-        return jnp.asarray(v, jnp.int32)
-
-    def copy_in(block, s):
-        block, s = _i32(block), _i32(s)
-        return pltpu.make_async_copy(
-            st_hbm.at[:, pl.ds(block * BZ, BZ + 2 * K), :, :], slabs.at[s], sem_in.at[s]
-        )
-
-    def copy_out(block, s):
-        # only plane-set 0 (Htau') is written; the aliased buffer keeps the
-        # Ht planes and ghosts without any traffic.  The plane-set index
-        # must be i32 explicitly (an int literal lowers to i64 under x64,
-        # which Mosaic's memref_slice rejects).
-        block, s = _i32(block), _i32(s)
-        return pltpu.make_async_copy(
-            results.at[s],
-            out_hbm.at[_i32(0), pl.ds(block * BZ + K, BZ), :, :],
-            sem_out.at[s],
-        )
-
-    # Aliasing makes this kernel's output DMA overwrite rows that block
-    # i+1's input window still reads from the SAME buffer (the K halo rows
-    # [(i+1)BZ, (i+1)BZ+K)).  The wait order below closes that
-    # read-after-write race: block i's input was awaited by block i-1 (or
-    # the prologue), and block i waits for input i+1 to finish BEFORE
-    # starting its own output copy.  Requires K <= BZ so windows beyond
-    # i+1 cannot overlap the write (asserted by the builder).
-    @pl.when(i == 0)
-    def _():
-        copy_in(0, 0).start()
-        copy_in(0, 0).wait()
-
-    @pl.when(i + 1 < n_blocks)
-    def _():
-        copy_in(i + 1, nslot).start()
-
-    @pl.when(i >= 2)
-    def _():
-        copy_out(i - 2, slot).wait()
-
-    slab = slabs.at[slot]
-    dtype = jnp.dtype(st_hbm.dtype)
-    _dx2 = jnp.asarray(1.0 / (dx * dx), dtype)
-    _dy2 = jnp.asarray(1.0 / (dy * dy), dtype)
-    _dz2 = jnp.asarray(1.0 / (dz * dz), dtype)
-    _dt = jnp.asarray(1.0 / dt, dtype)
-    D_ = jnp.asarray(D, dtype)
-    dtau_ = jnp.asarray(dtau, dtype)
-    z0 = i * BZ
-
-    def sweep(a, ht_c, gz0, gy0, sl, sh):
-        # a: (m+2, my, nxp) -> (m, my-sl-sh, nxp).  z neighbors are the
-        # leading-dim window slices.  y neighbors: with sl=sh=0 (a single
-        # full-width chunk) this is the original edge-dup shift; for a
-        # chunk with an INTERIOR end (sl/sh = 1) the true neighbor rows
-        # exist in the chunk's ghost ring, so the shifted windows are
-        # direct slices — no concat copies at all.  Edge-dup rows feed
-        # only mask-zeroed boundary rows (same invariant as always).
-        zc = a[1:-1]
-        my = a.shape[1]
-        if sl == 0 and sh == 0:
-            center = zc
-            ym = _shift_y(zc, -1)
-            yp = _shift_y(zc, +1)
-            zmc = a[0:-2]
-            zpc = a[2:]
-        else:
-            center = zc[:, sl : my - sh]
-            ym = (
-                zc[:, sl - 1 : my - sh - 1]
-                if sl
-                else jnp.concatenate([zc[:, :1], zc[:, : my - sh - 1]], axis=1)
-            )
-            yp = (
-                zc[:, sl + 1 : my - sh + 1]
-                if sh
-                else jnp.concatenate([zc[:, sl + 1 :], zc[:, -1:]], axis=1)
-            )
-            zmc = a[0:-2, sl : my - sh]
-            zpc = a[2:, sl : my - sh]
-        xm = _shift_x(center, -1)
-        xp = _shift_x(center, +1)
-        lap = (
-            (xp - 2.0 * center + xm) * _dx2
-            + (yp - 2.0 * center + ym) * _dy2
-            + (zpc - 2.0 * center + zmc) * _dz2
-        )
-        dH = (center - ht_c) * _dt - D_ * lap
-        gz = gz0 + jax.lax.broadcasted_iota(jnp.int32, center.shape, 0)
-        gy = gy0 + jax.lax.broadcasted_iota(jnp.int32, center.shape, 1)
-        gx = jax.lax.broadcasted_iota(jnp.int32, center.shape, 2)
-        interior = (
-            (gz >= zbounds_ref[0]) & (gz <= zbounds_ref[1])
-            & (gy > 0) & (gy < ny - 1)
-            & (gx > 0) & (gx < nx - 1)
-        )
-        dH = jnp.where(interior, dH, jnp.asarray(0.0, dtype))
-        return center - dtau_ * dH, dH
-
-    # window row w <-> physical z = i*BZ + w - K for BOTH plane sets; the
-    # ht slice for sweep j (output phys base z0 - (K-j)) starts at row j.
-    # The K-sweep chain runs per y-CHUNK (YC chunks of nyp/YC rows, each
-    # carried with K ghost rows toward interior neighbors): the sweep
-    # temporaries then scale with the chunk width instead of nyp, cutting
-    # Mosaic's VMEM envelope so deeper K fits the 127 MiB limit.  DMAs,
-    # aliasing, and the race-close order are untouched (full-width slabs).
-    CH = nyp // YC
-    ssq = jnp.asarray(0.0, dtype)
-    for c in range(YC):
-        ylo = 0 if c == 0 else c * CH - K
-        yhi = nyp if c == YC - 1 else (c + 1) * CH + K
-        u = slab[0, :, ylo:yhi, :]
-        cur_lo, cur_hi = ylo, yhi
-        dH = None
-        for j in range(1, K + 1):
-            m = BZ + 2 * (K - j)
-            sl = 1 if c > 0 else 0
-            sh = 1 if c < YC - 1 else 0
-            nlo, nhi = cur_lo + sl, cur_hi - sh
-            u, dH = sweep(
-                u, slab[1, j : j + m, nlo:nhi, :],
-                z0 - (K - j), nlo, sl, sh,
-            )
-            cur_lo, cur_hi = nlo, nhi
-        results[slot, :, c * CH : (c + 1) * CH, :] = u
-        ssq = ssq + jnp.sum(dH * dH)
-
-    @pl.when(i == 0)
-    def _():
-        acc_ref[0, 0] = jnp.asarray(0.0, dtype)
-
-    acc_ref[0, 0] += ssq
-
-    # the race-closing wait: input i+1 must be fully on-chip before the
-    # aliased output overwrites its tail halo rows
-    @pl.when(i + 1 < n_blocks)
-    def _():
-        copy_in(i + 1, nslot).wait()
-
-    copy_out(i, slot).start()
-
-    @pl.when(i == n_blocks - 1)
-    def _():
-        @pl.when(n_blocks >= 2)
-        def _():
-            copy_out(i - 1, nslot).wait()
-
-        copy_out(i, slot).wait()
-
-
-@functools.lru_cache(maxsize=64)
-def _build_callk_stacked(shape, dtype_name, K, BZ, dt, dtau, dx, dy, dz, D, interpret,
-                         YC=1):
-    nz, ny, nx = shape
-    nyp, nxp = _pad_yx(ny, nx)
-    dtype = jnp.dtype(dtype_name)
-    grid = (nz // BZ,)
-
-    kernel = functools.partial(
-        _dual_timek_stacked_kernel,
-        K=K, BZ=BZ, YC=YC, nz=nz, ny=ny, nx=nx, nyp=nyp, nxp=nxp,
-        dt=dt, dtau=dtau, D=D, dx=dx, dy=dy, dz=dz,
-    )
-    word = dtype.itemsize
-    return pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((2,), lambda i: _im32(0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((2, nz + 2 * K, nyp, nxp), lambda i: _im32(0, 0, 0, 0), memory_space=pl.ANY),
-        ],
-        out_specs=[
-            pl.BlockSpec((2, nz + 2 * K, nyp, nxp), lambda i: _im32(0, 0, 0, 0), memory_space=pl.ANY),
-            pl.BlockSpec((1, 1), lambda i: _im32(0, 0), memory_space=pltpu.SMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((2, nz + 2 * K, nyp, nxp), dtype),
-            jax.ShapeDtypeStruct((1, 1), dtype),
-        ],
-        # the output IS the input buffer (donated): unwritten regions — the
-        # ghost planes and everything the block DMAs skip — persist
-        input_output_aliases={1: 0},
-        scratch_shapes=[
-            pltpu.VMEM((2, 2, BZ + 2 * K, nyp, nxp), dtype),
-            pltpu.VMEM((2, BZ, nyp, nxp), dtype),
-            pltpu.SemaphoreType.DMA((2,)),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=K * 27 * nz * ny * nx,
-            bytes_accessed=4 * word * nz * ny * nx,
-            transcendentals=0,
-        ),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=127 * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )
-
-
-def _pick_bz_stacked(nz: int, nyp: int, nxp: int, itemsize: int, K: int,
-                     YC: int = 1) -> int:
-    """Block depth for the stacked kernel: scratch (6BZ+8K planes) plus
-    Mosaic's sweep temporaries empirically total ~(10BZ + 16K) planes; the
-    whole envelope must fit the 127 MiB Mosaic limit (measured at 512^3:
-    K=3/BZ=8 fits and saturates HBM, K=4/BZ=8 overflows).
-
-    With ``YC`` y-chunks the sweep temporaries scale with the chunk width
-    (nyp/YC + 2K ghost rows) instead of nyp — the scratch slabs (6BZ+8K
-    planes) stay full-width, so only the (4BZ+8K)-plane temporaries term
-    shrinks."""
-    plane = nyp * nxp * itemsize
-    chunk_frac = (nyp // YC + 2 * K) / nyp if YC > 1 else 1.0
-    budget = 128 * 1024 * 1024
-    best = 1
-    for b in range(1, nz + 1):
-        scratch = (6 * b + 8 * K) * plane
-        temps = (4 * b + 8 * K) * plane * chunk_frac
-        if nz % b == 0 and scratch + temps <= budget:
-            best = b
-    return best
 
 
 def stack_state_k(Ht, Htau, K=3):
-    """Physical Ht/Htau -> the stacked kernel state (2, nz+2K, ny8, nx128):
+    """Physical Ht/Htau -> the stacked state (2, nz+2K, ny8, nx128):
     plane-set 0 = Htau, plane-set 1 = Ht, both K-ghost-padded alike."""
     return jnp.stack([pad3dk(Htau, K), pad3dk(Ht, K)])
 
@@ -759,153 +216,54 @@ def unstack_state_k(state, shape, K=3):
 
 
 def dual_time_stepk_stacked(
-    state, shape, dt, dtau, dx, dy, dz, D, K=3, block_z=None, z_bounds=None,
-    y_chunks=1,
+    state, shape, dt, dtau, dx, dy, dz, D, K=3, z_bounds=None,
 ):
-    """K fused pseudo-time iterations on stacked (Htau, Ht) state.
+    """K pseudo-time iterations on the stacked (Htau, Ht) state.
 
-    Returns (state', sumsq of the LAST iteration's dHdtau).  state' aliases
-    state's buffer on TPU (the Ht planes and ghosts are never re-copied);
-    per-grid-step DMA drops from 3 streams to 2.
-
-    ``y_chunks`` splits the in-kernel K-sweep COMPUTE (not the DMAs) into
-    y chunks, shrinking Mosaic's sweep temporaries so deeper K fits the
-    VMEM limit.  NOTE: this is a VMEM *enabler*, not a measured win — the
-    counted traffic model ((3BZ+4K)/(BZ*K) words/cell) favors deeper K,
-    but same-session TPU A/Bs at 512^3 measure every K>=4 y_chunks config
-    SLOWER than K=3/y_chunks=1 (chunk-seam recompute + ghost-row overlap
-    outweigh the traffic saving; see CLAUDE.md round-5).  Default stays
-    K=3, y_chunks=1.
-    """
-    nz, ny, nx = shape
-    nyp, nxp = _pad_yx(ny, nx)
-    interpret = not _on_tpu()
-    if y_chunks < 1:
-        raise ValueError(f"y_chunks must be >= 1 (got {y_chunks})")
-    BZ = block_z or _pick_bz_stacked(
-        nz, nyp, nxp, jnp.dtype(state.dtype).itemsize, K, YC=int(y_chunks))
-    if K > BZ:
-        raise ValueError(
-            f"stacked K-fusion needs K <= BZ (got K={K}, BZ={BZ}): the "
-            "race-closing DMA order only covers the adjacent block's halo"
-        )
-    if nyp % y_chunks != 0:
-        raise ValueError(f"y_chunks={y_chunks} must divide padded ny={nyp}")
-    if y_chunks > 1 and nyp // y_chunks <= 2 * K:
-        raise ValueError(
-            f"y_chunks={y_chunks} leaves chunks of {nyp // y_chunks} rows, "
-            f"too thin for K={K} ghost rows"
-        )
-    call = _build_callk_stacked(
-        tuple(shape), jnp.dtype(state.dtype).name, int(K), BZ,
-        float(dt), float(dtau), float(dx), float(dy), float(dz), float(D),
-        interpret, YC=int(y_chunks),
+    Returns (state', sumsq of the LAST iteration's dHdtau); the Ht planes
+    and every ghost plane come back unchanged."""
+    kw = dict(dt=dt, dtau=dtau, dx=dx, dy=dy, dz=dz, D=D)
+    Htau_k, sumsq = _k_sweeps(
+        state[0], lambda j, m: state[1, j : j + m], K, shape, z_bounds, kw
     )
-    if z_bounds is None:
-        zb = jnp.asarray([1, nz - 2], jnp.int32)
-    else:
-        zb = jnp.stack(
-            [jnp.asarray(z_bounds[0], jnp.int32), jnp.asarray(z_bounds[1], jnp.int32)]
-        )
-    out, acc = call(zb, state)
-    if interpret:
-        # the interpreter may not preserve unwritten regions of the aliased
-        # output: reconstruct them from the input (free on TPU)
-        out = state.at[0, K : K + nz].set(out[0, K : K + nz])
-    return out, acc[0, 0]
-
-
-@functools.lru_cache(maxsize=64)
-def _build_call(shape, dtype_name, BZ, dt, dtau, dx, dy, dz, D, interpret,
-                ghosts=(0, 0)):
-    nz, ny, nx = shape  # logical physical shape
-    gy, gx = ghosts
-    ny8, nx128 = _pad_yx(ny, nx)
-    nyp, nxp = 2 * gy + ny8, 2 * gx + nx128  # stored ghost/tile-padded shape
-    dtype = jnp.dtype(dtype_name)
-    grid = (nz // BZ,)
-
-    kernel = functools.partial(
-        _dual_time_kernel,
-        BZ=BZ, nz=nz, ny=ny, nx=nx, nyp=nyp, nxp=nxp, gy_off=gy, gx_off=gx,
-        dt=dt, dtau=dtau, D=D, dx=dx, dy=dy, dz=dz,
-    )
-    word = dtype.itemsize
-    return pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((6,), lambda i: _im32(0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((BZ, nyp, nxp), lambda i: _im32(i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((nz + 2, nyp, nxp), lambda i: _im32(0, 0, 0), memory_space=pl.ANY),
-        ],
-        out_specs=[
-            pl.BlockSpec((nz + 2, nyp, nxp), lambda i: _im32(0, 0, 0), memory_space=pl.ANY),
-            pl.BlockSpec((1, 1), lambda i: _im32(0, 0), memory_space=pltpu.SMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((nz + 2, nyp, nxp), dtype),
-            jax.ShapeDtypeStruct((1, 1), dtype),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((2, BZ + 2, nyp, nxp), dtype),
-            pltpu.VMEM((2, BZ, nyp, nxp), dtype),
-            pltpu.SemaphoreType.DMA((2,)),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=27 * nz * ny * nx,
-            bytes_accessed=4 * word * nz * ny * nx,
-            transcendentals=0,
-        ),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )
+    return state.at[0].set(Htau_k), sumsq
 
 
 def dual_time_step_padded(
     Ht_padded, Htau_padded, shape, dt, dtau, dx, dy, dz, D,
-    block_z=None, z_bounds=None, bounds=None, ghosts=(0, 0),
+    z_bounds=None, bounds=None, ghosts=(0, 0),
 ):
-    """One fused pseudo-time iteration on ghost/tile-padded state.
+    """One pseudo-time iteration on ghost-padded state.
 
     shape is the logical (nz, ny, nx); Ht_padded is ``pad_ht``-shaped and
     Htau_padded ``pad3d``-shaped (both with matching ``ghosts``).
     Bounds are inclusive local ranges of updateable cells per axis:
-    ``bounds`` = (zlo, zhi, ylo, yhi, xlo, xhi), or the legacy ``z_bounds``
-    = (zlo, zhi) with full-interior y/x.  Defaults to the single-device
+    ``bounds`` = (zlo, zhi, ylo, yhi, xlo, xhi), or ``z_bounds`` =
+    (zlo, zhi) with full-interior y/x.  Defaults to the single-device
     global-Dirichlet interior; sharded callers pass shard-dependent values
     (parallel.halo.mask_bounds).  Returns (Htau_padded', sumsq of dHdtau
     over the updateable cells).
     """
     nz, ny, nx = shape
     gy, gx = ghosts
-    ny8, nx128 = _pad_yx(ny, nx)
-    BZ = block_z or _pick_bz(
-        nz, 2 * gy + ny8, 2 * gx + nx128, jnp.dtype(Ht_padded.dtype).itemsize
-    )
-    call = _build_call(
-        tuple(shape), jnp.dtype(Ht_padded.dtype).name, BZ,
-        float(dt), float(dtau), float(dx), float(dy), float(dz), float(D),
-        not _on_tpu(), ghosts=(int(gy), int(gx)),
-    )
     if bounds is None:
         if z_bounds is None:
             z_bounds = (1, nz - 2)
         bounds = (z_bounds[0], z_bounds[1], 1, ny - 2, 1, nx - 2)
-    bd = jnp.stack([jnp.asarray(b, jnp.int32) for b in bounds])
-    out, acc = call(bd, Ht_padded, Htau_padded)
-    return out, acc[0, 0]
+    b = [jnp.asarray(v, jnp.int32) for v in bounds]
+    center = Htau_padded[1 : 1 + nz]
+    inter = _interior(center.shape, 0, b[0], b[1], ny, nx, gy, gx,
+                      yx_bounds=tuple(b[2:]))
+    new, dH = _sweep(center, Htau_padded[0:nz], Htau_padded[2 : 2 + nz],
+                     Ht_padded, inter, dt=dt, dtau=dtau, dx=dx, dy=dy, dz=dz,
+                     D=D)
+    return Htau_padded.at[1 : 1 + nz].set(new), jnp.sum(dH * dH)
 
 
 def dual_time_step(Ht, Htau, dt, dtau, dx, dy, dz, D, with_norm=True):
-    """Drop-in replacement for stencil3d.dual_time_step on physical arrays.
-
-    Pads/unpads around the fused kernel — use the padded variant inside
-    iteration loops to avoid the pad/unpad copies.
-    """
+    """Drop-in replacement for stencil3d.dual_time_step on physical arrays
+    (pads/unpads around the step — use the padded variants inside
+    iteration loops)."""
     out_p, sumsq = dual_time_step_padded(
         pad_ht(Ht), pad3d(Htau), Ht.shape, dt, dtau, dx, dy, dz, D
     )

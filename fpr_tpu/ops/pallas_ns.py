@@ -1,17 +1,15 @@
-"""Fused Navier-Stokes operator kernel — all per-step 2D operators in one
-HBM pass.
+"""Fused Navier-Stokes operator pass — all per-step 2D operators at once.
 
 The reference evaluates each NS term with a separate device kernel
 (compute_velocity!, compute_Ra_dTdx!, compute_diffusion2d!,
 compute_advection2d_{x,y}!, part2.jl:90-137) plus a BC mutator
 (part2_utils.jl:22-39) and the Euler / rhs update — 8+ full-array passes
-per timestep.  On TPU those passes are HBM-bandwidth- and latency-bound,
-so this kernel fuses the WHOLE operator pipeline:
+per timestep.  This pass computes the whole operator pipeline as one
+elementwise expression that XLA fuses:
 
     T <- BCs(T)                      (Dirichlet bottom/top, Neumann sides,
                                       Neumann wins at corners)
-    vx =  dS/dy, vy = -dS/dx         (central diff, recomputed from S: one
-                                      extra read beats writing two planes)
+    vx =  dS/dy, vy = -dS/dx         (central diff, recomputed from S)
     B  = Ra dT/dx                    (buoyancy forcing)
     dT2 = k  lap T,  dW2 = Pr lap W  (diffusion)
     dTx/dTy/dWx/dWy                  (first-order upwind advection)
@@ -20,209 +18,122 @@ so this kernel fuses the WHOLE operator pipeline:
     mode "rhs":       T' = -cT (T + dt ((1-beta) dT2 - dTx - dTy))
                       W' = -cW (W + dt ((1-beta) dW2 - dWx - dWy - Pr B))
 
-into a single pass: 3 planes read (stacked T/W + S), 2 written.  dt, cT,
-cW are runtime SMEM scalars (dt is adaptive, part2.jl:76-87); everything
-else is compile-time.
+dt, cT, cW are runtime scalars (dt is adaptive, part2.jl:76-87);
+everything else is compile-time.
 
 Layout: row-padded operands (see fpr_tpu.ops.pallas2d) with T and W
-STACKED into one (2, total, nxp) array — the explicit kernel's output is
+STACKED into one (2, total, nxp) array — the explicit pass's output is
 exactly the next step's input, so the time loop never repacks.  S arrives
 as a separate plane (it is produced by the multigrid solve each step).
 
 Boundary semantics match the jnp tier exactly (ns_step,
 fpr_tpu/models/navier_stokes.py): T' carries the BC'd boundary (terms are
 zero there), W' keeps its original boundary; in rhs mode the boundary rows
-carry -c*(field) with zero terms.  Row/column padding stays zero so rms
-reductions over the padded array equal physical-domain rms.
+carry -c*(field) with zero terms.  Everything outside the physical domain
+is zero, so rms reductions over the padded array equal physical-domain
+rms.
 """
 
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from fpr_tpu.ops.ds import ds_add, ds_mul_ds, quick_two_sum, two_prod, two_sum
+from fpr_tpu.ops.ds import _is_pow2, curl_maxima, defect_sumsq, ds_defect
 from fpr_tpu.ops.pallas2d import (
-    PAD,
-    _im32,
-    _on_tpu,
-    padded_cols,
-    padded_rows,
+    block_sumsq,
+    global_coords,
+    interior_mask,
+    shift_cols,
+    shift_rows,
 )
 
 
-def _ns_kernel(
-    scal_ref, tw_hbm, s_hbm, out_hbm, *refs,
-    BR, ny, nx, nxp, h, Pr, Ra, k, beta, mode, with_defect=False,
-    with_helm_defect=False,
-):
-    """One grid step on a BR-row block (halo-1 window of E rows).
+def ns_fused_rp(tw_rp, s_rp, dt, ny, nx, br, h, Pr, Ra, k=1.0, beta=0.0,
+                mode="explicit", cT=None, cW=None, with_sumsq=False,
+                row_off=0, ny_mask=None, with_defect=False):
+    """Fused NS operator pass on row-padded operands.
 
-    scal_ref (SMEM, (8,1)): [dt, cT, cW, row_off, CT_hi, CT_lo, CW_hi,
-    CW_lo] runtime scalars (row_off = the shard's global row offset, 0
-    single-device; the C pairs are the ds splits of 4 + c h^2, used only
-    when with_helm_defect).
-    tw_hbm: (2, total, nxp) stacked T (plane 0) / W (plane 1).
-    s_hbm:  (total, nxp) streamfunction — or the (2, total, nxp) ds hi/lo
-    pair when with_defect.
-    out_hbm: (2, total, nxp) stacked outputs (T'/W' or T_rhs/W_rhs).
+    tw_rp: (2, total, nxp) stacked T/W; s_rp: (total, nxp) streamfunction.
+    dt (and cT, cW in rhs mode) are runtime scalars.  Returns the stacked
+    (2, total, nxp) result: (T', W') in explicit mode, (T_rhs, W_rhs) in
+    rhs mode.  with_sumsq=True additionally returns the two output fields'
+    sums of squares (the multigrid tolerances tol*rms(field) then need no
+    separate reduction pass).  On a row-sharded mesh ny is the local row
+    count, ny_mask the global one and row_off the global index of local
+    physical row 0; the sums then cover this shard's rows.
 
-    with_defect (explicit mode only): additionally emit the NEXT step's
-    streamfunction-solve inputs, fusing what would otherwise be a whole
-    extra HBM pass (ds.defect_pass with scale=0): r32 = A S - W' in ds
-    residual arithmetic (bit-for-formula identical to ds._defect_kernel),
-    its sum of squares, and the adaptive-dt curl maxima max|dS/dy|,
-    max|dS/dx| of the CURRENT (just-converged) S — exactly the extras the
-    initial defect pass of the next step's warm solve would produce.
-
-    with_helm_defect (rhs mode only): additionally emit the two Helmholtz
-    solves' warm-start inputs, fusing their initial ds.defect_pass HBM
-    passes: rT = A_cT T - T_rhs and rW = A_cW W - W_rhs in ds residual
-    arithmetic, evaluated on the warm starts (T, 0) / (W, 0) — T with the
-    kernel's BC application, exactly what the skipped initial pass
-    (apply_bcs=True, lo plane zero) would have produced — plus their sums
-    of squares.
+    with_defect=True (explicit only): s_rp must be the FULL (2, total,
+    nxp) ds streamfunction pair; additionally returns the next step's
+    warm-S-solve inputs, in place of its initial ds.defect_pass: (out,
+    (t_ss, w_ss), r0, extras0) with r0 = (r32_rp, r_rms of A S - W') and
+    extras0 = (max|vx|, max|vy|, 0.0) of the current S — feed to
+    mg_solve_ds_rp(r0=..., extras0=...).  The arithmetic is ds.defect_pass
+    with scale=0, c=0 and an exactly-f32 rhs.
     """
-    if with_defect or with_helm_defect:
-        (r32_hbm, acc_ref, twslabs, sslabs, results, rres,
-         sem_tw, sem_s, sem_out, sem_r) = refs
-    else:
-        (acc_ref, twslabs, sslabs, results,
-         sem_tw, sem_s, sem_out) = refs
-    i = pl.program_id(0)
-    n_blocks = pl.num_programs(0)
-    slot = jax.lax.rem(i, jnp.asarray(2, i.dtype))
-    nslot = 1 - slot
-    E = BR + 2 * PAD
-
-    def _i32(v):
-        return jnp.asarray(v, jnp.int32)
-
-    def copy_tw(block, s):
-        block, s = _i32(block), _i32(s)
-        return pltpu.make_async_copy(
-            tw_hbm.at[:, pl.ds(block * BR, E), :], twslabs.at[s], sem_tw.at[s]
-        )
-
-    def copy_s(block, s):
-        block, s = _i32(block), _i32(s)
-        if with_defect:
-            src = s_hbm.at[:, pl.ds(block * BR, E), :]
-        else:
-            src = s_hbm.at[pl.ds(block * BR, E), :]
-        return pltpu.make_async_copy(src, sslabs.at[s], sem_s.at[s])
-
-    def copy_out(block, s):
-        block, s = _i32(block), _i32(s)
-        return pltpu.make_async_copy(
-            results.at[s], out_hbm.at[:, pl.ds(block * BR + PAD, BR), :], sem_out.at[s]
-        )
-
-    def copy_r(block, s):
-        block, s = _i32(block), _i32(s)
-        if with_helm_defect:
-            dst = r32_hbm.at[:, pl.ds(block * BR + PAD, BR), :]
-        else:
-            dst = r32_hbm.at[pl.ds(block * BR + PAD, BR), :]
-        return pltpu.make_async_copy(rres.at[s], dst, sem_r.at[s])
-
-    @pl.when(i == 0)
-    def _():
-        copy_tw(0, 0).start()
-        copy_s(0, 0).start()
-
-    @pl.when(i + 1 < n_blocks)
-    def _():
-        copy_tw(i + 1, nslot).start()
-        copy_s(i + 1, nslot).start()
-
-    copy_tw(i, slot).wait()
-    copy_s(i, slot).wait()
-
-    @pl.when(i >= 2)
-    def _():
-        copy_out(i - 2, slot).wait()
-        if with_defect or with_helm_defect:
-            copy_r(i - 2, slot).wait()
-
-    T = twslabs[slot, 0, :, :]
-    W = twslabs[slot, 1, :, :]
-    S = sslabs[slot, 0, :, :] if with_defect else sslabs[slot, :, :]
-    dtype = T.dtype
-    dt = scal_ref[0, 0]
-    off = scal_ref[3, 0].astype(jnp.int32)
-
-    gy = off + i * BR - PAD + jax.lax.broadcasted_iota(jnp.int32, (E, nxp), 0)
-    gx = jax.lax.broadcasted_iota(jnp.int32, (E, nxp), 1)
-
-    def sh_up(v):  # value at row-1 (toward gy=0)
-        return jnp.concatenate([v[:1, :], v[:-1, :]], axis=0)
-
-    def sh_dn(v):  # value at row+1
-        return jnp.concatenate([v[1:, :], v[-1:, :]], axis=0)
-
-    def sh_lf(v):  # value at col-1
-        return jnp.concatenate([v[:, :1], v[:, :-1]], axis=1)
-
-    def sh_rt(v):  # value at col+1
-        return jnp.concatenate([v[:, 1:], v[:, -1:]], axis=1)
-
+    dtype = tw_rp.dtype
+    if with_defect:
+        if s_rp.ndim != 3:
+            raise ValueError("with_defect needs the (2, total, nxp) ds S pair")
+        if mode != "explicit":
+            raise ValueError("with_defect is explicit-mode only")
+        if not _is_pow2(1.0 / (h * h)):
+            raise ValueError(f"1/h^2 = {1.0 / (h * h)} must be a power of two")
+    ny_g = ny_mask if ny_mask is not None else ny
+    T, W = tw_rp[0], tw_rp[1]
+    S = s_rp[0] if with_defect else s_rp
+    gy, gx = global_coords(T.shape, row_off)
     one = jnp.asarray(1.0, dtype)
     zero = jnp.asarray(0.0, dtype)
+    dt = jnp.asarray(dt, dtype)
 
-    # --- T boundary conditions (part2_utils.jl:22-39): Dirichlet rows
-    # first, Neumann column copies second (Neumann wins at the corners,
-    # matching bc.ns_temperature_bcs).  Applied over the whole window so
-    # halo rows/cols feeding the stencils see BC'd values too.
-    T = jnp.where(gy == 0, one, jnp.where(gy == ny - 1, zero, T))
-    T = jnp.where(gx == 0, sh_rt(T), jnp.where(gx == nx - 1, sh_lf(T), T))
+    # T boundary conditions (part2_utils.jl:22-39): Dirichlet rows first,
+    # Neumann column copies second (Neumann wins at the corners, matching
+    # bc.ns_temperature_bcs); applied everywhere so the stencils below see
+    # BC'd neighbours
+    T = jnp.where(gy == 0, one, jnp.where(gy == ny_g - 1, zero, T))
+    T = jnp.where(gx == 0, shift_cols(T, 1),
+                  jnp.where(gx == nx - 1, shift_cols(T, -1), T))
 
     _2h = jnp.asarray(0.5 / h, dtype)
     _h = jnp.asarray(1.0 / h, dtype)
     _h2 = jnp.asarray(1.0 / (h * h), dtype)
 
     # velocity = curl of S (part2.jl:90-96)
-    vx = (sh_dn(S) - sh_up(S)) * _2h
-    vy = -(sh_rt(S) - sh_lf(S)) * _2h
+    vx = (shift_rows(S, 1) - shift_rows(S, -1)) * _2h
+    vy = -(shift_cols(S, 1) - shift_cols(S, -1)) * _2h
 
     # buoyancy Ra dT/dx (part2.jl:98-104)
-    B = jnp.asarray(Ra, dtype) * (sh_rt(T) - sh_lf(T)) * _2h
+    B = jnp.asarray(Ra, dtype) * (shift_cols(T, 1) - shift_cols(T, -1)) * _2h
+
+    def lap(F):
+        return (shift_rows(F, -1) + shift_rows(F, 1) + shift_cols(F, -1)
+                + shift_cols(F, 1) - 4.0 * F) * _h2
 
     # diffusion (part2.jl:106-113) — skipped entirely when fully implicit
     # (beta == 1 zeroes its weight; the reference skips the kernels too,
     # part2.jl:205-208)
-    use_dif = abs(beta - 1.0) > 1e-8
-    if use_dif:
-        dT2 = jnp.asarray(k, dtype) * (
-            (sh_up(T) + sh_dn(T) + sh_lf(T) + sh_rt(T) - 4.0 * T) * _h2
-        )
-        dW2 = jnp.asarray(Pr, dtype) * (
-            (sh_up(W) + sh_dn(W) + sh_lf(W) + sh_rt(W) - 4.0 * W) * _h2
-        )
+    if abs(beta - 1.0) > 1e-8:
+        dT2 = jnp.asarray(k, dtype) * lap(T)
+        dW2 = jnp.asarray(Pr, dtype) * lap(W)
     else:
-        dT2 = zero
-        dW2 = zero
+        dT2 = dW2 = zero
 
     # first-order upwind advection (part2.jl:116-137)
     def upwind_x(F):
-        back = (F - sh_lf(F)) * _h
-        fwd = (sh_rt(F) - F) * _h
+        back = (F - shift_cols(F, -1)) * _h
+        fwd = (shift_cols(F, 1) - F) * _h
         return vx * jnp.where(vx > 0, back, fwd)
 
     def upwind_y(F):
-        back = (F - sh_up(F)) * _h
-        fwd = (sh_dn(F) - F) * _h
+        back = (F - shift_rows(F, -1)) * _h
+        fwd = (shift_rows(F, 1) - F) * _h
         return vy * jnp.where(vy > 0, back, fwd)
 
     dTx, dTy = upwind_x(T), upwind_y(T)
     dWx, dWy = upwind_x(W), upwind_y(W)
 
-    interior = (gy > 0) & (gy < ny - 1) & (gx > 0) & (gx < nx - 1)
-    phys = (gy >= 0) & (gy < ny) & (gx < nx)
+    interior = interior_mask(gy, gx, ny_g, nx)
+    phys = (gy >= 0) & (gy < ny_g) & (gx < nx)
     PrB = jnp.asarray(Pr, dtype) * B
 
     if mode == "explicit":
@@ -230,289 +141,28 @@ def _ns_kernel(
         termW = dW2 - dWx - dWy - PrB
         T_out = jnp.where(phys, jnp.where(interior, T + dt * termT, T), zero)
         W_out = jnp.where(phys, jnp.where(interior, W + dt * termW, W), zero)
-    else:  # "rhs": Helmholtz right-hand sides (part2.jl:219-226)
-        cT = scal_ref[1, 0]
-        cW = scal_ref[2, 0]
+    elif mode == "rhs":  # Helmholtz right-hand sides (part2.jl:219-226)
+        cT = jnp.asarray(cT, dtype)
+        cW = jnp.asarray(cW, dtype)
         wdif = jnp.asarray(1.0 - beta, dtype)
         termT = jnp.where(interior, wdif * dT2 - dTx - dTy, zero)
         termW = jnp.where(interior, wdif * dW2 - dWx - dWy - PrB, zero)
         T_out = jnp.where(phys, -cT * (T + dt * termT), zero)
         W_out = jnp.where(phys, -cW * (W + dt * termW), zero)
+    else:
+        raise ValueError(f"mode must be 'explicit' or 'rhs' (got {mode!r})")
 
-    blk = slice(PAD, PAD + BR)
-    T_blk = T_out[blk, :]
-    W_blk = W_out[blk, :]
-    results[slot, 0, :, :] = T_blk
-    results[slot, 1, :, :] = W_blk
-
-    # field sums of squares (zero outside the physical domain, so the block
-    # sums equal physical-domain sums): the NS loop's multigrid tolerances
-    # tol*rms(field) then need no standalone XLA reduction pass
-    @pl.when(i == 0)
-    def _():
-        acc_ref[0, 0] = jnp.asarray(0.0, dtype)
-        acc_ref[1, 0] = jnp.asarray(0.0, dtype)
-        if with_defect:
-            acc_ref[2, 0] = jnp.asarray(0.0, dtype)
-            acc_ref[3, 0] = jnp.asarray(0.0, dtype)
-            acc_ref[4, 0] = jnp.asarray(0.0, dtype)
-        if with_helm_defect:
-            acc_ref[2, 0] = jnp.asarray(0.0, dtype)
-            acc_ref[3, 0] = jnp.asarray(0.0, dtype)
-
-    acc_ref[0, 0] += jnp.sum(T_blk * T_blk)
-    acc_ref[1, 0] += jnp.sum(W_blk * W_blk)
-
-    if with_helm_defect:
-        # ds initial defects of the two Helmholtz solves' warm starts:
-        # r = A_c (X, 0) - rhs with X the CURRENT field (T after the
-        # kernel's BC application == the skipped initial pass's
-        # apply_bcs result; W raw) and rhs the block just computed —
-        # formula for formula the ds._defect_kernel arithmetic with a
-        # zero lo plane, c != 0 (ds_mul_ds against the SMEM C pair) and
-        # an exactly-f32 rhs (f_single).
-        ih2 = jnp.asarray(1.0 / (h * h), dtype)  # exact power of two
-        zeroE = jnp.zeros_like(T)
-
-        def helm_defect(X, C_hi, C_lo, rhs_blk):
-            s1, e1 = two_sum(sh_up(X), sh_dn(X))
-            s2, e2 = two_sum(sh_lf(X), sh_rt(X))
-            sh_, e3 = two_sum(s1, s2)
-            sl_ = ((e1 + e2) + e3) + (
-                (sh_up(zeroE) + sh_dn(zeroE)) + (sh_lf(zeroE) + sh_rt(zeroE))
-            )
-            cuh, cul = ds_mul_ds(X, zeroE, C_hi, C_lo)
-            th, tl = ds_add(sh_, sl_, -cuh, -cul)
-            th, tl = th * ih2, tl * ih2
-            rs, re = two_sum(th[blk, :], -rhs_blk)
-            r = rs + (re + tl[blk, :])
-            return jnp.where(interior[blk, :], r, zero)
-
-        rT = helm_defect(T, scal_ref[4, 0], scal_ref[5, 0], T_blk)
-        rW = helm_defect(W, scal_ref[6, 0], scal_ref[7, 0], W_blk)
-        rres[slot, 0, :, :] = rT
-        rres[slot, 1, :, :] = rW
-        acc_ref[2, 0] += jnp.sum(rT * rT)
-        acc_ref[3, 0] += jnp.sum(rW * rW)
-
+    out = jnp.stack([T_out, W_out])
+    sums = (block_sumsq(T_out), block_sumsq(W_out))
     if with_defect:
         # ds residual of the (unchanged) streamfunction against the NEW
         # vorticity: r = A S - W', the initial defect of the next step's
-        # warm S solve (ds._defect_kernel with scale=0, c=0, f_single,
-        # formula for formula — see that kernel for the EFT derivation)
-        Sl = sslabs[slot, 1, :, :]
-        s1, e1 = two_sum(sh_up(S), sh_dn(S))
-        s2, e2 = two_sum(sh_lf(S), sh_rt(S))
-        sh_, e3 = two_sum(s1, s2)
-        sl_ = ((e1 + e2) + e3) + (
-            (sh_up(Sl) + sh_dn(Sl)) + (sh_lf(Sl) + sh_rt(Sl))
-        )
-        th, tl = ds_add(sh_, sl_, -(S * 4.0), -(Sl * 4.0))
-        ih2 = jnp.asarray(1.0 / (h * h), dtype)  # exact power of two
-        th, tl = th * ih2, tl * ih2
-        rs, re = two_sum(th[blk, :], -W_blk)
-        r = rs + (re + tl[blk, :])
-        r = jnp.where(interior[blk, :], r, zero)
-        rres[slot, :, :] = r
-        acc_ref[2, 0] += jnp.sum(r * r)
-        # adaptive-dt curl maxima of S (the extras the initial defect pass
-        # would return); vy's sign differs from the defect kernel's but
-        # only |.| is consumed
-        vxa = jnp.where(interior[blk, :], jnp.abs(vx[blk, :]), zero)
-        vya = jnp.where(interior[blk, :], jnp.abs(vy[blk, :]), zero)
-        acc_ref[3, 0] = jnp.maximum(acc_ref[3, 0], jnp.max(vxa))
-        acc_ref[4, 0] = jnp.maximum(acc_ref[4, 0], jnp.max(vya))
-
-    copy_out(i, slot).start()
-    if with_defect or with_helm_defect:
-        copy_r(i, slot).start()
-
-    @pl.when(i == n_blocks - 1)
-    def _():
-        @pl.when(n_blocks >= 2)
-        def _():
-            copy_out(i - 1, nslot).wait()
-            if with_defect or with_helm_defect:
-                copy_r(i - 1, nslot).wait()
-
-        copy_out(i, slot).wait()
-        if with_defect or with_helm_defect:
-            copy_r(i, slot).wait()
-
-
-@functools.lru_cache(maxsize=128)
-def _build_ns(ny, nx, dtype_name, layout_br, h, Pr, Ra, k, beta, mode, interpret,
-              ny_mask=None, with_defect=False, with_helm_defect=False):
-    dtype = jnp.dtype(dtype_name)
-    total = padded_rows(ny, layout_br)
-    nxp = padded_cols(nx)
-    # ~18 live (E, nxp) planes (3 streams double-buffered + term
-    # temporaries); block at half the layout br to keep scratch + Mosaic
-    # spills inside VMEM (same trick as the ds defect kernel) — the padded
-    # total is unchanged because layout_br is a multiple of 16
-    BR = layout_br // 2 if layout_br >= 32 else layout_br
-    n_blocks = (total - 2 * PAD) // BR
-    assert n_blocks * BR == total - 2 * PAD, (total, layout_br, BR)
-    any_defect = with_defect or with_helm_defect
-    if any_defect:
-        assert not (with_defect and with_helm_defect)
-        assert mode == ("explicit" if with_defect else "rhs"), (
-            "with_defect is explicit-path only; with_helm_defect rhs-only"
-        )
-        from fpr_tpu.ops.ds import _is_pow2
-
-        assert _is_pow2(1.0 / (h * h)), f"1/h^2 = {1.0/(h*h)} must be 2^k"
-    kernel = functools.partial(
-        _ns_kernel,
-        BR=BR, ny=ny_mask if ny_mask is not None else ny, nx=nx, nxp=nxp,
-        h=h, Pr=Pr, Ra=Ra, k=k, beta=beta, mode=mode, with_defect=with_defect,
-        with_helm_defect=with_helm_defect,
-    )
-    word = dtype.itemsize
-    E = BR + 2 * PAD
-    n_acc = 5 if with_defect else (4 if with_helm_defect else 2)
-    s_spec = (
-        pl.BlockSpec((2, total, nxp), lambda i: _im32(0, 0, 0), memory_space=pl.ANY)
-        if with_defect
-        else pl.BlockSpec((total, nxp), lambda i: _im32(0, 0), memory_space=pl.ANY)
-    )
-    r_shape = (2, total, nxp) if with_helm_defect else (total, nxp)
-    r_im = (lambda i: _im32(0, 0, 0)) if with_helm_defect else (lambda i: _im32(0, 0))
-    r_out = (
-        [pl.BlockSpec(r_shape, r_im, memory_space=pl.ANY)],
-        [jax.ShapeDtypeStruct(r_shape, dtype)],
-    ) if any_defect else ([], [])
-    s_slab = (2, 2, E, nxp) if with_defect else (2, E, nxp)
-    r_slab = (2, 2, BR, nxp) if with_helm_defect else (2, BR, nxp)
-    r_scratch = [pltpu.VMEM(r_slab, dtype)] if any_defect else []
-    r_sem = [pltpu.SemaphoreType.DMA((2,))] if any_defect else []
-    return pl.pallas_call(
-        kernel,
-        grid=(n_blocks,),
-        in_specs=[
-            pl.BlockSpec((8, 1), lambda i: _im32(0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((2, total, nxp), lambda i: _im32(0, 0, 0), memory_space=pl.ANY),
-            s_spec,
-        ],
-        out_specs=[
-            pl.BlockSpec(
-                (2, total, nxp), lambda i: _im32(0, 0, 0), memory_space=pl.ANY
-            ),
-            *r_out[0],
-            pl.BlockSpec((n_acc, 1), lambda i: _im32(0, 0), memory_space=pltpu.SMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((2, total, nxp), dtype),
-            *r_out[1],
-            jax.ShapeDtypeStruct((n_acc, 1), dtype),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((2, 2, E, nxp), dtype),
-            pltpu.VMEM(s_slab, dtype),
-            pltpu.VMEM((2, 2, BR, nxp), dtype),
-            *r_scratch,
-            pltpu.SemaphoreType.DMA((2,)),
-            pltpu.SemaphoreType.DMA((2,)),
-            pltpu.SemaphoreType.DMA((2,)),
-            *r_sem,
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=(90 if any_defect else 60) * ny * nx,
-            bytes_accessed=(7 if any_defect else 5) * word * ny * nx,
-            transcendentals=0,
-        ),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=110 * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )
-
-
-def ns_fused_rp(tw_rp, s_rp, dt, ny, nx, br, h, Pr, Ra, k=1.0, beta=0.0,
-                mode="explicit", cT=None, cW=None, with_sumsq=False,
-                row_off=0, ny_mask=None, with_defect=False,
-                with_helm_defect=False):
-    """Fused NS operator pass on row-padded operands.
-
-    tw_rp: (2, total, nxp) stacked T/W; s_rp: (total, nxp) streamfunction.
-    dt (and cT, cW in rhs mode) are runtime scalars.  Returns the stacked
-    (2, total, nxp) result: (T', W') in explicit mode, (T_rhs, W_rhs) in
-    rhs mode.  with_sumsq=True additionally returns the two output fields'
-    sums of squares (SMEM-accumulated — the multigrid tolerances
-    tol*rms(field) then need no separate reduction pass).
-
-    with_defect=True (explicit only): s_rp must be the FULL (2, total,
-    nxp) ds streamfunction pair; additionally returns the next step's
-    warm-S-solve inputs, replacing its initial ds.defect_pass HBM pass:
-    (out, (t_ss, w_ss), r0, extras0) with r0 = (r32_rp, r_rms of A S - W')
-    and extras0 = (max|vx|, max|vy|, 0.0) of the current S — feed to
-    mg_solve_ds_rp(r0=..., extras0=...).
-
-    with_helm_defect=True (rhs only): additionally returns the two
-    Helmholtz solves' warm-start inputs, replacing their initial
-    ds.defect_pass HBM passes: (out, (trhs_ss, wrhs_ss), r0T, r0W) with
-    r0X = (r32_rp, r_rms) of A_cX X - X_rhs evaluated on the warm start
-    (X, 0) — feed each to its mg_solve_ds_rp(r0=...).  NOTE: the fast
-    loop does NOT use this mode — a same-session A/B measured it ~3%
-    slower end-to-end than the two separate defect passes (the extra
-    in-kernel ds EFT work on every rhs pass outweighs the saved
-    bandwidth; see CLAUDE.md).  Kept as a tested capability.
-    """
-    dtype = tw_rp.dtype
-    if with_defect and s_rp.ndim != 3:
-        raise ValueError("with_defect needs the (2, total, nxp) ds S pair")
-    if with_helm_defect and (cT is None or cW is None):
-        raise ValueError("with_helm_defect needs cT and cW")
-    call = _build_ns(
-        ny, nx, jnp.dtype(dtype).name, br,
-        float(h), float(Pr), float(Ra), float(k), float(beta), mode,
-        not _on_tpu(), ny_mask=ny_mask, with_defect=with_defect,
-        with_helm_defect=with_helm_defect,
-    )
-    z = jnp.asarray(0.0, dtype)
-    if with_helm_defect:
-        # ds splits of C = 4 + c h^2 for the fused initial defects —
-        # the exact EFT sequence of ds._defect_scalars' traced-f32 branch
-        h2 = jnp.asarray(float(h) * float(h), jnp.float32)
-        four = jnp.asarray(4.0, jnp.float32)
-
-        def _c_pair(c):
-            p, pe = two_prod(jnp.asarray(c, jnp.float32), h2)
-            s, se = two_sum(four, p)
-            return quick_two_sum(s, se + pe)
-
-        CT_hi, CT_lo = _c_pair(cT)
-        CW_hi, CW_lo = _c_pair(cW)
-    else:
-        CT_hi = CT_lo = CW_hi = CW_lo = z
-    scal = jnp.stack([
-        jnp.asarray(dt, dtype),
-        z if cT is None else jnp.asarray(cT, dtype),
-        z if cW is None else jnp.asarray(cW, dtype),
-        jnp.asarray(row_off, dtype),
-        CT_hi, CT_lo, CW_hi, CW_lo,
-    ]).reshape(8, 1)
-    n = ny_mask if ny_mask is not None else ny
-    if with_defect:
-        out, r32, acc = call(scal, tw_rp, s_rp)
-        r_rms = jnp.sqrt(acc[2, 0] / (nx * n))
-        return (
-            out,
-            (acc[0, 0], acc[1, 0]),
-            (r32, r_rms),
-            (acc[3, 0], acc[4, 0], jnp.asarray(0.0, dtype)),
-        )
-    if with_helm_defect:
-        out, r2, acc = call(scal, tw_rp, s_rp)
-        rT_rms = jnp.sqrt(acc[2, 0] / (nx * n))
-        rW_rms = jnp.sqrt(acc[3, 0] / (nx * n))
-        return (
-            out,
-            (acc[0, 0], acc[1, 0]),
-            (r2[0], rT_rms),
-            (r2[1], rW_rms),
-        )
-    out, acc = call(scal, tw_rp, s_rp)
+        # warm S solve, plus the curl maxima of the current S
+        r = ds_defect(S, s_rp[1], W_out, None, 1.0 / (h * h))
+        r = jnp.where(interior, r, zero)
+        r_rms = jnp.sqrt(defect_sumsq(r, interior) / (nx * ny_g))
+        ax, ay = curl_maxima(S, interior, 0.5 / h)
+        return out, sums, (r, r_rms), (ax, ay, zero)
     if with_sumsq:
-        return out, (acc[0, 0], acc[1, 0])
+        return out, sums
     return out

@@ -10,7 +10,7 @@ guard with ``1 < ix < nx && 1 < iy < ny``:
 - velocity/advection/diffusion/buoyancy: part2.jl:90-137
 
 These are pure functions of their inputs; XLA fuses the elementwise chains.
-The Pallas tier (fpr_tpu.ops.pallas2d) provides fused kernels with identical
+The fused tier (fpr_tpu.ops.pallas2d) provides fused steps with identical
 semantics.
 """
 
@@ -76,7 +76,7 @@ def jacobi_step(u, f, h, c, alpha=0.8, with_norm=True):
 def red_black_gs_step(u, f, h, c, with_norm=True):
     """One red-black Gauss-Seidel sweep (two masked half-sweeps).
 
-    TPU-parallel GS: points with (ix+iy) even ("red") update first from the
+    Data-parallel GS: points with (ix+iy) even ("red") update first from the
     current u, then "black" points update from the half-updated u.  This is
     the parallel replacement for the reference's serial GS
     (multigrid.jl:269-297), with damping 1.0 as noted there.

@@ -6,8 +6,8 @@ Restriction is injection at coincident (odd) fine points
 Prolongation is bilinear interpolation.  The reference implements it as a
 *scatter* from each interior coarse point with weights {1, 1/2, 1/4} and
 needs GPU atomics because neighboring coarse points write overlapping fine
-points (multigrid.jl:403-420).  Pallas/TPU has no scatter-atomics, so we
-re-derive it as a *gather*: scattering weight w from every (zero-boundary)
+points (multigrid.jl:403-420).  We re-derive it as a *gather*, which needs
+no atomics: scattering weight w from every (zero-boundary)
 coarse point is identical to upsampling the coarse grid by 2 (zeros in
 between) and convolving with the separable kernel
 
@@ -30,11 +30,7 @@ import jax.numpy as jnp
 from fpr_tpu.core import bc
 
 def restrict(fine: jnp.ndarray, apply_bcs: bool = False) -> jnp.ndarray:
-    """Injection restriction (ny, nx) -> ((ny-1)//2+1, (nx-1)//2+1).
-
-    TPU note: the stride is taken one axis at a time — XLA lowers the fused
-    [::2, ::2] slice to a pathological gather (~13x slower than two passes).
-    """
+    """Injection restriction (ny, nx) -> ((ny-1)//2+1, (nx-1)//2+1)."""
     coarse_full = fine[::2, :][:, ::2]
     coarse = bc.zero_boundary_2d(coarse_full)
     if apply_bcs:
@@ -139,9 +135,7 @@ def prolongate(
 ) -> jnp.ndarray:
     """Bilinear prolongation, gather form (== reference's atomic scatter),
     built by parity: the four fine-point classes are the coarse values and
-    their x/y/xy midpoint averages, interleaved with stack+reshape — the
-    TPU-fast formulation (~1.9 ms at 4097^2 vs ~31 ms for shift-scatter and
-    ~4.4 ms for a 1-channel transposed conv, which also drops to bf16).
+    their x/y/xy midpoint averages, interleaved with stack+reshape.
     """
     ny_f, nx_f = fine_shape
     c = bc.zero_boundary_2d(coarse)

@@ -1,23 +1,23 @@
-"""Multi-chip 3D pseudo-transient diffusion: shard_map over a device mesh.
+"""Multi-device 3D pseudo-transient diffusion: shard_map over a device mesh.
 
-The TPU-native rebuild of the reference's multi-XPU path
+The rebuild of the reference's multi-XPU path
 (diffusion_3D_kernel_programming, part1_kernel_programming.jl:99-228):
 
 - Cartesian decomposition of the global grid over a 1D/2D/3D device mesh
   (axis names 'z'/'y'/'x' map to array dims 0/1/2), mirroring the
   reference's 3D MPI rank grid (init_global_grid);
 - ``update_halo!`` -> ``lax.ppermute`` of face planes per sharded dim over
-  ICI (parallel.halo); ``MPI.Allreduce`` -> ``lax.psum``;
+  the interconnect (parallel.halo); ``MPI.Allreduce`` -> ``lax.psum``;
 - per-rank local grids of (cfg.nz, cfg.ny, cfg.nx), with optional
   physical-size scaling for weak-scaling runs (part1_kernel_programming.jl:106-114);
 - the whole inner pseudo-time loop (stencil + halo exchange + global norm)
   runs on-device inside shard_map; the host syncs once per physical step.
 
-Operator tiers: both ExecutionPolicy.PALLAS (fused kernel on the
-ghost/tile-padded layout — decomposed y/x dims get tile-aligned ghost
-blocks, mirroring the reference's 3D Cartesian rank grid,
-part1_kernel_programming.jl:100-101) and ExecutionPolicy.JNP (fully
-ghost-padded ext3 step) support 1D/2D/3D meshes.
+Operator tiers: both ExecutionPolicy.PALLAS (fused step on the
+ghost-padded layout — decomposed y/x dims get ghost blocks, mirroring the
+reference's 3D Cartesian rank grid, part1_kernel_programming.jl:100-101)
+and ExecutionPolicy.JNP (fully ghost-padded ext3 step) support 1D/2D/3D
+meshes.
 """
 
 from __future__ import annotations
@@ -29,10 +29,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-try:  # jax >= 0.8 top-level spelling; experimental alias is deprecated
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from fpr_tpu.core.config import DiffusionConfig, ExecutionPolicy
 from fpr_tpu.core.grid import Grid3D, outer_steps, pseudo_timestep
@@ -85,13 +82,14 @@ def build_step(cfg: DiffusionConfig, mesh: Mesh, axis: str = "z"):
     all_axes = tuple(mesh.axis_names)
     local_shape = (cfg.nz, cfg.ny, cfg.nx)
     sharded = {AXIS_DIM[a]: a for a in mesh.axis_names}
-    # Pallas ghost layout: tile-aligned ghost blocks only on decomposed
-    # y/x dims (8 sublanes / 128 lanes per side); z always ghost-padded
+    # padded layout: ghost blocks only on decomposed y/x dims (8 rows /
+    # 128 columns per side); z always ghost-padded
     ghosts = (8 if 1 in sharded else 0, 128 if 2 in sharded else 0)
 
-    # K-deep temporal fusion over the mesh (check_every=K): one K-plane
-    # halo message per direction feeds K fused in-VMEM iterations (the
-    # communication-avoiding exchange; z-decomposed meshes only)
+    # K iterations per call over the mesh (check_every=K): one K-plane halo
+    # message per direction feeds K iterations that recompute the halo
+    # locally (the communication-avoiding exchange; z-decomposed meshes
+    # only)
     Kf = cfg.check_every
     use_kfused = use_pallas and Kf > 1 and set(sharded) <= {0}
     if use_pallas and Kf > 1 and not use_kfused:
@@ -102,11 +100,11 @@ def build_step(cfg: DiffusionConfig, mesh: Mesh, axis: str = "z"):
         raise ValueError(f"local nz={cfg.nz} must be >= check_every={Kf}")
 
     overlap = cfg.overlap_comm and not use_pallas and set(sharded) <= {0}
-    # Pallas overlap (@hide_communication analog for the fused-kernel tier,
-    # part1_kernel_programming.jl:185-188): the kernel updates the shard's
+    # fused-tier overlap (@hide_communication analog,
+    # part1_kernel_programming.jl:185-188): the fused step updates the shard's
     # z-interior while the face ppermute is in flight; the two z-edge
     # planes are then recomputed in XLA from the fresh ghosts.  The edge
-    # planes are ~2/nz of the work, so the kernel pass hides the collective.
+    # planes are ~2/nz of the work, so the interior pass hides the collective.
     pallas_overlap = (
         cfg.overlap_comm and use_pallas and set(sharded) <= {0} and cfg.nz >= 2
     )
@@ -210,7 +208,7 @@ def build_step(cfg: DiffusionConfig, mesh: Mesh, axis: str = "z"):
             from fpr_tpu.ops import pallas3d
 
             nzl = cfg.nz
-            # constants in the kernel's exact arithmetic form (multiplies by
+            # constants in the fused step's exact arithmetic form (multiplies by
             # trace-time reciprocals) so the edge planes match it ulp-for-ulp
             _dx2, _dy2 = 1.0 / (kw["dx"] ** 2), 1.0 / (kw["dy"] ** 2)
             _dz2, _dt = 1.0 / (kw["dz"] ** 2), 1.0 / kw["dt"]
@@ -237,7 +235,7 @@ def build_step(cfg: DiffusionConfig, mesh: Mesh, axis: str = "z"):
 
             def body_po(carry):
                 Hp, _, it = carry
-                # start the face exchange; the interior kernel pass below
+                # start the face exchange; the interior pass below
                 # has no data dependence on it, so XLA overlaps them
                 gl, gh = halo.exchange_faces(Hp[1 : 1 + nzl], "z", 0)
                 out, sumsq = pallas3d.dual_time_step_padded(
@@ -318,11 +316,7 @@ def build_step(cfg: DiffusionConfig, mesh: Mesh, axis: str = "z"):
     kwargs = dict(
         mesh=mesh, in_specs=(spec, spec), out_specs=(spec, spec, P(), P())
     )
-    try:
-        # pallas_call outputs don't carry vma metadata yet; disable the check
-        step = shard_map(shard_body, check_vma=False, **kwargs)
-    except TypeError:  # older jax: the flag was called check_rep
-        step = shard_map(shard_body, check_rep=False, **kwargs)
+    step = shard_map(shard_body, **kwargs)
     return jax.jit(step), grid
 
 

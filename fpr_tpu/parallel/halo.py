@@ -1,8 +1,8 @@
 """Halo exchange over the device mesh via ppermute.
 
-The TPU-native replacement for ImplicitGlobalGrid's ``update_halo!``
+The replacement for ImplicitGlobalGrid's ``update_halo!``
 (part1_kernel_programming.jl:182,187): inside a shard_map, each shard sends
-its boundary face planes to the +/-1 neighbors along a mesh axis over ICI.
+its boundary face planes to the +/-1 neighbors along a mesh axis.
 Non-periodic edges receive zeros (``lax.ppermute`` zero-fills unlisted
 destinations), which is exactly right for the Dirichlet problems here: the
 values only ever feed cells masked as global physical boundary.
@@ -85,10 +85,10 @@ def refresh_ghosts_zk(Hp, nz: int, axis_name: str, K: int, base: int | None = No
     """Refresh K-deep z ghost planes of a K-ghost-padded local block
     (fpr_tpu.ops.pallas3d.pad3dk layout: physical planes at [base, base+nz),
     base defaulting to K) — the communication-avoiding halo exchange for
-    the temporally-fused kernel: ONE K-plane message per direction feeds K
-    fused pseudo-time iterations (the deep halo absorbs them by in-VMEM
+    the K-iteration step: ONE K-plane message per direction feeds K
+    pseudo-time iterations (the deep halo absorbs them by local
     recomputation), vs K one-plane exchanges on the unfused path.  Fewer,
-    bigger ICI messages — the scaled analog of @hide_communication
+    bigger messages — the scaled analog of @hide_communication
     (part1_kernel_programming.jl:185-188)."""
     base = K if base is None else base
     if K == 0:
@@ -106,7 +106,7 @@ def refresh_ghosts_zk(Hp, nz: int, axis_name: str, K: int, base: int | None = No
 
 
 def refresh_ghosts_padded(Hp, shape, sharded, ghosts):
-    """Refresh every sharded dimension's ghost layer of a Pallas-layout
+    """Refresh every sharded dimension's ghost layer of a padded-layout
     (nz+2, gy+ny8+gy, gx+nx128+gx) block (fpr_tpu.ops.pallas3d.pad3d).
 
     sharded: dim index (0/1/2) -> mesh axis name.  The one-cell faces are

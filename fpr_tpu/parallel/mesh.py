@@ -1,9 +1,9 @@
-"""Device mesh construction — the TPU replacement for the reference's
+"""Device mesh construction — the replacement for the reference's
 ImplicitGlobalGrid Cartesian communicator (init_global_grid,
 part1_kernel_programming.jl:100-101).
 
 The reference builds a 3D MPI rank grid; here a ``jax.sharding.Mesh`` over
-the slice plays that role, with halo exchange via ``ppermute`` over ICI
+the devices plays that role, with halo exchange via ``ppermute``
 (fpr_tpu.parallel.halo) replacing ``update_halo!`` and ``psum`` replacing
 ``MPI.Allreduce`` (part1_utils.jl:36-40).
 """

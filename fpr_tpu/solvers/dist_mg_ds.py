@@ -1,37 +1,36 @@
 """Production-tier distributed multigrid: ``mg_solve_ds`` sharded over a
-device mesh with per-shard fused Pallas kernels and ppermute halo exchange.
+device mesh with per-shard fused legs and ppermute halo exchange.
 
-This is the multi-chip form of the framework's fastest 2D solver (the
+This is the multi-device form of the framework's fastest 2D solver (the
 double-single defect-correction MG, fpr_tpu/solvers/multigrid.py) — the
 capability the reference cannot reach at all: its part-2 multigrid runs on
 exactly one GPU (multigrid.jl:41-170), while grids at k >= 15 (32769^2:
-~21 GB of f32 solver state) do not fit one TPU chip's HBM.  The layer
-composition mirrors the reference's part-1 distribution design
-(init_global_grid + update_halo!, part1_kernel_programming.jl:100-101,182)
-re-built TPU-first: shard_map over a 1D mesh axis, 8-row tile-aligned halo
-slots (the rp layout's PAD rows double as ghost buffers), psum norms, and a
-replicated coarse subtree.
+~21 GB of f32 solver state) outgrow one card.  The layer composition
+mirrors the reference's part-1 distribution design (init_global_grid +
+update_halo!, part1_kernel_programming.jl:100-101,182): shard_map over a
+1D mesh axis, 8-row halo slots (the rp layout's PAD rows double as ghost
+buffers), psum norms, and a replicated coarse subtree.
 
 Layout
 ------
-Rows are decomposed (rows = the sublane dim; splitting lanes would fragment
-every vector op).  Each device owns ``ny_l`` contiguous global rows at the
-fine level, ``ny_l`` a multiple of ``16 * 2**(s-1)`` so that every one of
-the ``s`` sharded levels keeps even, 16-aligned local row counts (the
-fused-kernel block constraint) and shard offsets preserve fine/coarse row
-parity.  The last shard's tail rows beyond the global grid are dead: the
-kernels' interior masks (driven by the *global* row index ``off + row``)
-never update them, and halo exchange never reads them.
+Rows are decomposed.  Each device owns ``ny_l`` contiguous global rows at
+the fine level, ``ny_l`` a multiple of ``16 * 2**(s-1)`` so that every one
+of the ``s`` sharded levels keeps even, 16-aligned local row counts (the
+rp layout's block rule) and shard offsets preserve fine/coarse row parity.
+The last shard's tail rows beyond the global grid are dead: the interior
+masks (driven by the *global* row index ``off + row``) never update them,
+and halo exchange never reads them.
 
-Per sharded level and V-cycle leg the shard runs the SAME fused kernels as
+Per sharded level and V-cycle leg the shard runs the SAME fused legs as
 the single-device solver (`smooth2r_split_rp`, `corr_smooth2_raw`,
 `ds.defect_pass`) with a traced global-row offset; the PAD=8 ghost rows are
 refreshed by one (8, nxp)-face ppermute pair per array per leg — the halo
-recomputation inside the kernels then reproduces the single-device
-arithmetic bitwise on every shard.  Below ``replicate_below`` global rows
-the residual is all-gathered and every device runs the identical coarse
-subtree (jnp V-cycle + DST coarse solve) redundantly — at <= 513^2 the
-subtree is latency-, not compute-bound, and redundancy beats collectives.
+recomputation inside the legs then reproduces the single-device arithmetic
+on every shard.  Below ``replicate_below`` global rows the residual is
+assembled on every device (a psum of zero-padded slabs, typed replicated)
+and every device runs the identical coarse subtree (jnp V-cycle + DST
+coarse solve) redundantly — at <= 513^2 the subtree is latency-, not
+compute-bound, and redundancy beats collectives.
 """
 
 from __future__ import annotations
@@ -42,10 +41,7 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax import lax
-try:  # jax >= 0.8 top-level spelling; experimental alias is deprecated
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from fpr_tpu.core.config import ExecutionPolicy, MGConfig, Smoother
@@ -75,7 +71,7 @@ class ShardPlan:
     ndev: int
     s: int                    # number of sharded levels (>= 1)
     ny_l: int                 # local rows at the fine level
-    brs: tuple[int, ...]      # kernel block rows per sharded level
+    brs: tuple[int, ...]      # rp block rows per sharded level
 
     def level(self, m: int):
         """(ny_l_m, ny_g_m, nx_g_m, br_m) for sharded level m."""
@@ -85,20 +81,6 @@ class ShardPlan:
             ((self.nx - 1) >> m) + 1,
             self.brs[m],
         )
-
-
-def _br_divisor(ny_l_m: int, nx_g_m: int) -> int:
-    """Largest multiple-of-16 divisor of ny_l_m within the VMEM budget
-    (cf. pallas2d._pick_br; here br must also divide the local rows so the
-    bottom PAD slot sits immediately after the last physical row)."""
-    nxp = padded_cols(nx_g_m)
-    cap = int(100 * 1024 * 1024 / (8.5 * nxp * 4)) - 2 * PAD
-    cap = max(16, min(512, cap))
-    best = 16
-    for d in range(16, ny_l_m + 1, 16):
-        if ny_l_m % d == 0 and d <= cap:
-            best = d
-    return best
 
 
 def plan_shards(
@@ -118,9 +100,7 @@ def plan_shards(
         )
     align = 16 * (1 << (s - 1))
     ny_l = -(-ny // (ndev * align)) * align
-    brs = tuple(
-        _br_divisor(ny_l >> m, ((nx - 1) >> m) + 1) for m in range(s)
-    )
+    brs = tuple(pallas2d.layout_br(ny_l >> m) for m in range(s))
     return ShardPlan(ny=ny, nx=nx, ndev=ndev, s=s, ny_l=ny_l, brs=brs)
 
 
@@ -132,8 +112,8 @@ def plan_shards(
 def _refresh(a, ny_l: int, axis: str):
     """Refresh the PAD-row ghost slots of a local rp array (leading dims
     allowed, rows at axis -2) from the +-1 neighbors; global edges get
-    zeros (the single-device pad value).  Also overwrites the *garbage*
-    ghost rows of fresh kernel outputs (which never write ghost slots)."""
+    zeros (the single-device pad value).  Also overwrites the unspecified
+    ghost rows of fresh leg outputs."""
     n = lax.axis_size(axis)
     fwd = [(i, i + 1) for i in range(n - 1)]
     bwd = [(i + 1, i) for i in range(n - 1)]
@@ -149,10 +129,10 @@ def _refresh(a, ny_l: int, axis: str):
 def _restrict_ps_cols(res_ps, ny_l: int, br: int, nx: int,
                       apply_bcs: bool = False):
     """Injection restriction of a parity-split local residual: extract the
-    per-block even halves (the in-kernel row pass) and stride the columns.
+    per-block even halves (the leg's row pass) and stride the columns.
     Returns the local PHYSICAL coarse slab (ny_l//2, nxc).  No boundary-row
-    zeroing: global-boundary residual rows are already masked to zero
-    in-kernel; columns 0 / nxc-1 are zeroed (global in every shard).
+    zeroing: global-boundary residual rows are already masked to zero by
+    the leg; columns 0 / nxc-1 are zeroed (global in every shard).
     apply_bcs: the Neumann left/right column copies of transfer.restrict_ps
     — a lane-dim operation, identical in every shard."""
     nxp = res_ps.shape[-1]
@@ -215,8 +195,8 @@ def _vcycle_dist(e_rp, r_rp, plan: ShardPlan, h: float, c, tol: float,
     alpha = cfg.jacobi_damping
     assert cfg.smoother is Smoother.JACOBI
     # one 8-row halo exchange per leg supports up to PAD-2 sweeps of
-    # in-kernel (bitwise) halo recomputation — same bound as the
-    # single-device kernels, so the deep-smoothed production configs
+    # in-leg halo recomputation — same bound as the single-device legs,
+    # so the deep-smoothed production configs
     # (V(3,3)..V(5,5)) shard without extra communication
     assert 1 <= cfg.pre_smooth <= 6 and 1 <= cfg.post_smooth <= 6
 
@@ -251,7 +231,12 @@ def _vcycle_dist(e_rp, r_rp, plan: ShardPlan, h: float, c, tol: float,
             nyc_l = ny_lm // 2
             ny_gs = ((plan.ny - 1) >> (m + 1)) + 1
             nx_gs = ((plan.nx - 1) >> (m + 1)) + 1
-            gathered = lax.all_gather(res_c, axis, tiled=True)
+            # placed into a zero global array and psum'd (x + 0 is exact):
+            # the result is typed replicated, so every device runs the
+            # identical subtree
+            gathered = lax.psum(lax.dynamic_update_slice(
+                jnp.zeros((plan.ndev * nyc_l, res_c.shape[1]), res_c.dtype),
+                res_c, (d * nyc_l, jnp.int32(0))), axis)
             res_glob = gathered[:ny_gs, :]
             sub_cfg = dataclasses.replace(cfg, policy=ExecutionPolicy.JNP)
             corr_glob = jnp.zeros_like(res_glob)
@@ -329,14 +314,14 @@ def mg_solve_ds_sharded(
 
     f: GLOBAL (ny, nx) float32 rhs (zero boundary ring, as every caller in
     this framework provides).  Semantics match ``mg_solve_ds(None, f, ...)``
-    (same kernels, same per-cell arithmetic; reductions are psum'd so
+    (same legs, same per-cell arithmetic; reductions are psum'd so
     rounding of the norm may differ at the last bit).  Returns
     ((hi, lo), r_rms, iters) with hi/lo global (gather_result=True) or the
     raw sharded per-device stack (ndev, 2, total, nxp).
 
     apply_bcs: the NS temperature BCs (Dirichlet bottom/top, Neumann
     left/right — part2_utils.jl:22-25), applied inside the per-shard
-    defect kernel against GLOBAL row indices (the kernel takes the
+    defect pass against GLOBAL row indices (the pass takes the
     shard's traced row offset) and as shard-local Neumann column copies
     in every transfer; the sharded Helmholtz solves of the semi-implicit
     NS path build on this.
@@ -359,19 +344,18 @@ def mg_solve_ds_sharded(
 # ---------------------------------------------------------------------------
 # 2D (y, x) mesh decomposition
 #
-# Rows shard as above; columns shard in CPAD=128-lane-aligned slabs (the
-# Mosaic DMA/lane tile), each side of a shard carrying one ghost slab
-# refreshed by a single ppermute pair per array per leg — 128 ghost
-# columns absorb any smooth depth the 8 ghost ROWS allow (ns <= 6), so
-# the communication cadence is identical to the 1D solver.  The fused
-# kernels take a traced global column offset (lane 0 maps to
-# col_off = d_x*nx_l - CPAD, negative on the left edge) and mask against
-# the GLOBAL nx, so per-shard arithmetic stays bitwise equal to the
-# single-device kernels.  This is the part-2 analog of part 1's full
+# Rows shard as above; columns shard in CPAD=128-column slabs, each side of
+# a shard carrying one ghost slab refreshed by a single ppermute pair per
+# array per leg — 128 ghost columns absorb any smooth depth the 8 ghost
+# ROWS allow (ns <= 6), so the communication cadence is identical to the
+# 1D solver.  The fused legs take a traced global column offset (column 0
+# of the layout maps to col_off = d_x*nx_l - CPAD, negative on the left
+# edge) and mask against the GLOBAL nx, so per-shard arithmetic stays
+# equal to the single-device legs.  This is the part-2 analog of part 1's full
 # Cartesian decomposition (part1_kernel_programming.jl:100-101).
 # ---------------------------------------------------------------------------
 
-CPAD = 128  # ghost columns per side: one lane tile
+CPAD = 128  # ghost columns per side (the rp layout's column quantum)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -394,18 +378,6 @@ class ShardPlan2D:
             ((self.nx - 1) >> m) + 1,
             self.brs[m],
         )
-
-
-def _br_divisor_w(ny_l_m: int, nxp_loc: int) -> int:
-    """_br_divisor for an explicit local layout width (ghost columns
-    included)."""
-    cap = int(100 * 1024 * 1024 / (8.5 * nxp_loc * 4)) - 2 * PAD
-    cap = max(16, min(512, cap))
-    best = 16
-    for d in range(16, ny_l_m + 1, 16):
-        if ny_l_m % d == 0 and d <= cap:
-            best = d
-    return best
 
 
 def plan_shards_2d(
@@ -434,9 +406,7 @@ def plan_shards_2d(
     ny_l = -(-ny // (ndev_y * align_y)) * align_y
     align_x = CPAD * (1 << (s - 1))
     nx_l = -(-nx // (ndev_x * align_x)) * align_x
-    brs = tuple(
-        _br_divisor_w(ny_l >> m, (nx_l >> m) + 2 * CPAD) for m in range(s)
-    )
+    brs = tuple(pallas2d.layout_br(ny_l >> m) for m in range(s))
     return ShardPlan2D(ny=ny, nx=nx, ndev_y=ndev_y, ndev_x=ndev_x, s=s,
                        ny_l=ny_l, nx_l=nx_l, brs=brs)
 
@@ -504,10 +474,10 @@ def _vcycle_dist_2d(e_rp, r_rp, plan: ShardPlan2D, h: float, c, tol: float,
             col_off=coff, nx_mask=nx_gm,
         )
         down.append((u, f, (ny_lm, nx_lm, ny_gm, nx_gm, br_m, h_m, roff, coff)))
-        # injection: even block-halves (in-kernel row pass) + local column
+        # injection: even block-halves (the leg's row pass) + local column
         # decimation (offsets are even at every level, so local parity ==
         # global parity); global-boundary/dead-tail residuals are already
-        # masked to zero in-kernel
+        # masked to zero by the leg
         nxp_loc = res_ps.shape[-1]
         n_blocks = ny_lm // br_m
         even = (
@@ -527,8 +497,11 @@ def _vcycle_dist_2d(e_rp, r_rp, plan: ShardPlan2D, h: float, c, tol: float,
 
             ny_gs = ((plan.ny - 1) >> (m + 1)) + 1
             nx_gs = ((plan.nx - 1) >> (m + 1)) + 1
-            cols = lax.all_gather(res_c, ax, axis=1, tiled=True)
-            gathered = lax.all_gather(cols, ay, axis=0, tiled=True)
+            nyc_l, nxc_l = res_c.shape
+            gathered = lax.psum(lax.dynamic_update_slice(
+                jnp.zeros((plan.ndev_y * nyc_l, plan.ndev_x * nxc_l),
+                          res_c.dtype),
+                res_c, (dy * nyc_l, dx * nxc_l)), (ay, ax))
             res_glob = gathered[:ny_gs, :nx_gs]
             sub_cfg = dataclasses.replace(cfg, policy=ExecutionPolicy.JNP)
             corr_glob = jnp.zeros_like(res_glob)
@@ -563,7 +536,7 @@ def _vcycle_dist_2d(e_rp, r_rp, plan: ShardPlan2D, h: float, c, tol: float,
             corr_rp = _refresh2d(corr_rp_next, nyc_l, nxc_l, ay, ax)
             # +-4 coarse ghost rows AND +-GC coarse ghost cols (+1 for the
             # interpolation midpoint) -> the interleaved window carries
-            # 2*GC >= ns valid fine ghost lanes for the in-kernel sweeps
+            # 2*GC >= ns valid fine ghost columns for the in-leg sweeps
             ext = corr_rp[PAD - 4 : PAD + nyc_l + 4,
                           CPAD - GC : CPAD + nxc_l + GC + 1]
             rows = ext.shape[0]
@@ -607,11 +580,11 @@ def mg_solve_ds_sharded_2d(
 ):
     """Distributed ds MG over a 2D (y, x) device mesh, zero initial guess.
 
-    Semantics match ``mg_solve_ds(None, f, ...)`` — same fused kernels,
+    Semantics match ``mg_solve_ds(None, f, ...)`` — same fused legs,
     same per-cell arithmetic (per-shard bitwise; the psum'd norm may
     differ in the last bit).  Avoids the 1D solver's thin-slab limit:
     an 8-device slice can run 4x2 or 2x4 instead of 8x1, so per-shard
-    rows stay deep enough for the fused-kernel block constraint at more
+    rows stay deep enough for the rp block rule at more
     devices.  apply_bcs is not supported here (the NS tier shards 1D).
     Returns ((hi, lo), r_rms, iters) global, or the raw sharded stack.
     """
@@ -651,7 +624,8 @@ def _build_sharded_2d(plan, mesh, ay, ax, h, tol, niters, cfg, inner_cycles,
         coff = dx * nx_l - CPAD
         tolf = jnp.asarray(tol, jnp.float32) * f_rms
 
-        u_ds = jnp.zeros((2, total0, nxp_loc), jnp.float32)
+        u_ds = lax.pcast(jnp.zeros((2, total0, nxp_loc), jnp.float32),
+                         (ay, ax), to="varying")
         f_ds = f_rp[None]
         r32 = -f_rp
         r_rms0 = f_rms
@@ -693,10 +667,7 @@ def _build_sharded_2d(plan, mesh, ay, ax, h, tol, niters, cfg, inner_cycles,
         in_specs=(spec_f, P(), P()),
         out_specs=(spec_u, P(), P()),
     )
-    try:
-        body = shard_map(shard_body, check_vma=False, **kwargs)
-    except TypeError:  # older jax spelling
-        body = shard_map(shard_body, check_rep=False, **kwargs)
+    body = shard_map(shard_body, **kwargs)
 
     @jax.jit
     def solve(f, c):
@@ -748,11 +719,12 @@ def _build_sharded(plan, mesh, axis, h, tol, niters, cfg, inner_cycles,
         off0 = d * ny_l
         tolf = jnp.asarray(tol, jnp.float32) * f_rms
 
-        u_ds = jnp.zeros((2, total0, nxp), jnp.float32)
+        u_ds = lax.pcast(jnp.zeros((2, total0, nxp), jnp.float32), axis,
+                         to="varying")
         f_ds = f_rp[None]  # single-plane (exactly-f32) rhs
         if apply_bcs:
             # BCs make u_bc != 0: the initial defect must run through the
-            # kernel (scale=0 folds in the BCs exactly, as the single-
+            # pass (scale=0 folds in the BCs exactly, as the single-
             # device entry does)
             u_ds, r32, sumsq0 = dsm.defect_pass(
                 u_ds, f_ds, jnp.zeros((total0, nxp), jnp.float32), 0.0,
@@ -800,10 +772,7 @@ def _build_sharded(plan, mesh, axis, h, tol, niters, cfg, inner_cycles,
         in_specs=(spec_f, P(), P()),
         out_specs=(spec_u, P(), P()),
     )
-    try:
-        body = shard_map(shard_body, check_vma=False, **kwargs)
-    except TypeError:  # older jax spelling
-        body = shard_map(shard_body, check_rep=False, **kwargs)
+    body = shard_map(shard_body, **kwargs)
 
     @jax.jit
     def solve(f, c):

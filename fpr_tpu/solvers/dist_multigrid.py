@@ -1,15 +1,15 @@
 """Distributed 2D multigrid: the V-cycle sharded over a device mesh.
 
-Scales part 2's solver past one chip's HBM (the reference runs multigrid
+Scales part 2's solver past one card's memory (the reference runs multigrid
 on exactly one GPU; its multi-rank layer covers part 1 only — this is a
 beyond-reference capability, the 2D analog of the reference's 3D domain
 decomposition, part1_kernel_programming.jl:100-101).
 
 Design — GSPMD, not hand-rolled shard_map: every multigrid building block
 is pure jnp (stencils, injection restriction, gather-form prolongation,
-reductions), so the idiomatic TPU treatment is to shard the GLOBAL arrays
+reductions), so the idiomatic treatment is to shard the GLOBAL arrays
 by rows over the mesh and let XLA's partitioner insert the halo exchanges
-(collective-permutes of one-row faces over ICI) and psum the norms.  The
+(collective-permutes of one-row faces) and psum the norms.  The
 only guidance XLA needs is per-level placement, injected through
 ``vcycle``'s ``constrain`` hook:
 
@@ -20,9 +20,8 @@ only guidance XLA needs is per-level placement, injected through
   (tiny) coarse problem redundantly and identically, which also keeps the
   recursion deterministic.
 
-Row (not column) decomposition: rows are the sublane dimension, columns
-the 128-lane dimension — splitting columns would fragment the lane
-vectors every XLA op touches.
+Row (not column) decomposition: rows are the outer (strided) dimension,
+so a shard is one contiguous block and a halo face is one contiguous row.
 """
 
 from __future__ import annotations

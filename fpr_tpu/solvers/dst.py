@@ -1,16 +1,14 @@
-"""Exact (∇² − c) solve via dense sine-transform matmuls — the MXU-native
-coarse-grid solver.
+"""Exact (∇² − c) solve via dense sine-transform matmuls — the coarse-grid
+solver of the truncated multigrid ladders.
 
 The reference's coarse solve is an up-to-20·coarse_size damped-Jacobi loop
 with a per-iteration device norm, or CG (multigrid.jl:145-166) — dozens to
-hundreds of *sequential* device ops.  On TPU that sequential chain, not
-arithmetic, is the cost: the whole jnp small-level subtree of a V-cycle
-measures ~1-3 ms/cycle of pure dispatch (CLAUDE.md round-2 notes), and MG
-solves below k≈11 are flat at ~28 ms regardless of size.
+hundreds of *sequential* device ops, whose cost is dispatch, not
+arithmetic.
 
-The TPU-first replacement: the 5-point Dirichlet Laplacian is diagonalized
-exactly by the type-I discrete sine transform, and at coarse sizes the DST
-is just a dense matmul — MXU work.  For the operator used everywhere here,
+The replacement: the 5-point Dirichlet Laplacian is diagonalized exactly
+by the type-I discrete sine transform, and at coarse sizes the DST is just
+a dense matmul.  For the operator used everywhere here,
 
     A u = (u_E + u_W + u_N + u_S - (4 + c h²) u) / h² ,
 
@@ -29,10 +27,10 @@ exact, and identical in contract to the converged Jacobi coarse solve
 (which also leaves u's boundary ring untouched: smoothers update the
 interior only, multigrid.jl:245-258).
 
-Precision: matmuls run at Precision.HIGHEST — the TPU default would round
-f32 matmul operands to bf16 (a measured trap: silent 8-bit mantissas,
-CLAUDE.md); HIGHEST keeps f32-class accuracy, which as an *inner* solver
-inside the ds/mixed defect-correction loop is all that is needed.
+Precision: matmuls run at Precision.HIGHEST — a default-precision f32
+matmul may round its operands to a shorter mantissa (TF32 on the GPU);
+HIGHEST keeps f32-class accuracy, which as an *inner* solver inside the
+ds/mixed defect-correction loop is all that is needed.
 """
 
 from __future__ import annotations
@@ -75,123 +73,6 @@ def solve_interior(f_int, h: float, c):
     G = jnp.matmul(Vy, jnp.matmul(f_int, Vx, precision=hp), precision=hp)
     U = -G / denom
     return jnp.matmul(Vy, jnp.matmul(U, Vx, precision=hp), precision=hp)
-
-
-@functools.lru_cache(maxsize=32)
-def _fused_ps_consts(ny: int, nx: int, br: int, h: float, dtype_name: str):
-    """Constant matrices for ``corr_from_res_ps`` (numpy f64 -> dtype).
-
-    Geometry: the fine level is (ny, nx) in the rp layout with block rows
-    ``br`` (res_ps rows parity-split per block); the coarse level is
-    ((ny-1)/2+1, (nx-1)/2+1) at spacing 2h.  The maps folded into the
-    sine bases:
-
-    - W_y_in  (my, total):  select the even-parity fine rows that are
-      interior coarse rows out of the parity-split layout, composed with
-      the coarse y-DST: W_y_in[l, rowof(i)] = Vy[l, i].
-    - W_x_in  (nxp, mx):    even-interior-column injection composed with
-      the coarse x-DST: W_x_in[2(k+1), l] = Vx[k, l].
-    - denom   (my, mx):     lam_y (+) lam_x at spacing 2h (c added later).
-    - W_y_out (rows_needed, my): inverse y-DST composed with placement at
-      corr_smooth2's buffer convention (coarse row yc at row PAD + yc;
-      boundary coarse rows and the 4 ghost rows stay zero).
-    - W_x_out (mx, nxp):    inverse x-DST composed with the bilinear
-      x-interpolation onto fine width (x_interleave_coarse's linear map,
-      zero-boundary semantics included).
-    """
-    from fpr_tpu.ops.pallas2d import (
-        PAD,
-        corr_rows_needed,
-        padded_cols,
-        padded_rows,
-    )
-
-    nyc = (ny - 1) // 2 + 1
-    nxc = (nx - 1) // 2 + 1
-    my, mx = nyc - 2, nxc - 2
-    total = padded_rows(ny, br)
-    nxp = padded_cols(nx)
-    rows_needed = corr_rows_needed(ny, br)
-    Vy, ly = _dst_consts(my, 2.0 * float(h))
-    Vx, lx = _dst_consts(mx, 2.0 * float(h))
-
-    # W_y_in addresses only the WRITTEN block rows [PAD, total-PAD): the
-    # kernels never write the ghost/pad rows (unspecified on real TPUs,
-    # NaN in interpret mode) and 0-weight columns do not save a matmul
-    # from 0 * NaN — the consumer slices res_ps to this window
-    W_y_in = np.zeros((my, total - 2 * PAD))
-    for i in range(my):
-        yf = 2 * (i + 1)                      # global fine row
-        b, t = divmod(yf, br)
-        W_y_in[:, b * br + t // 2] = Vy[:, i]
-
-    W_x_in = np.zeros((nxp, mx))
-    for k in range(mx):
-        W_x_in[2 * (k + 1), :] = Vx[k, :]
-
-    denom = ly[:, None] + lx[None, :]
-
-    W_y_out = np.zeros((rows_needed, my))
-    for yc in range(1, nyc - 1):
-        W_y_out[PAD + yc, :] = Vy[yc - 1, :]
-
-    W_x_out = np.zeros((mx, nxp))
-    for j in range(nx):
-        if j % 2 == 0:
-            k = j // 2 - 1
-            if 0 <= k < mx:
-                W_x_out[:, j] += Vx[:, k]
-        else:
-            for k in (j // 2 - 1, j // 2):
-                if 0 <= k < mx:
-                    W_x_out[:, j] += 0.5 * Vx[:, k]
-
-    dt = np.dtype(dtype_name)
-    return (W_y_in.astype(dt), W_x_in.astype(dt), denom,
-            W_y_out.astype(dt), W_x_out.astype(dt))
-
-
-def corr_from_res_ps(res_ps, ny: int, nx: int, br: int, h: float, c,
-                     precision=None):
-    """The entire coarse correction of a truncated-DST ladder as ONE
-    matmul chain: injection restriction (row pass already done in-kernel:
-    res_ps is parity-split), even-column decimation, the exact coarse
-    solve at spacing 2h, and bilinear x-prolongation — all folded into
-    the DST basis matrices, reading the downward leg's res_ps directly
-    and writing the upward leg's corrx_rp buffer directly.
-
-        corrx_rp = W_y_out ((-(W_y_in res_ps W_x_in) / (lam+c)) W_x_out)
-
-    Replaces, per V-cycle: the restrict_ps column pass, the child-level
-    buffer build, the jnp-handoff subtree, dst_solve's residual passes,
-    and x_interleave_coarse — a dozen sequential XLA ops become 4 MXU
-    matmuls (the x-side ones fine-width: ~2x the flops of the plain DST,
-    which the MXU shrugs off; the dispatch chain is what these
-    latency-bound cycles pay for).  Zero-Dirichlet only (the apply_bcs
-    ladder keeps the unfused path — its Neumann copies are not a fixed
-    linear map of the interior).  Mathematically identical to the
-    unfused path; floating-point equal to matmul-reassociation level.
-    """
-    dtype_name = jnp.dtype(res_ps.dtype).name
-    W_y_in, W_x_in, denom_np, W_y_out, W_x_out = _fused_ps_consts(
-        ny, nx, br, float(h), dtype_name
-    )
-    dt = res_ps.dtype
-    hp = jax.lax.Precision.HIGHEST if precision is None else precision
-    denom = jnp.asarray(denom_np, dt) + jnp.asarray(c, dt)
-    from fpr_tpu.ops.pallas2d import PAD
-
-    body = res_ps[PAD : PAD + W_y_in.shape[1]]
-    G = jnp.matmul(
-        jnp.matmul(jnp.asarray(W_y_in, dt), body, precision=hp),
-        jnp.asarray(W_x_in, dt), precision=hp,
-    )
-    U = -G / denom
-    return jnp.matmul(
-        jnp.asarray(W_y_out, dt),
-        jnp.matmul(U, jnp.asarray(W_x_out, dt), precision=hp),
-        precision=hp,
-    )
 
 
 def dst_solve(u0, f, h: float, c):

@@ -134,10 +134,10 @@ def mg_preconditioned_cg(
 
 
 # ---------------------------------------------------------------------------
-# Production-tier MG-PCG: double-single accuracy, fused-Pallas V-cycle
+# Production-tier MG-PCG: double-single accuracy, fused-leg V-cycle
 # preconditioner, true-residual replacement — the BASELINE north-star
 # composition at the framework's fastest tier (the f64 version above is a
-# correctness reference; at k=13 it measured ~200x slower than the ds MG).
+# correctness reference).
 # ---------------------------------------------------------------------------
 
 
@@ -152,17 +152,18 @@ def mg_pcg_ds(
     dots: str = "rowsum64",
 ):
     """Flexible (Polak-Ribiere) CG on (nabla^2 - c) u = f, preconditioned
-    by one stacked-aliased Pallas V-cycle, with the iterate in double-single
+    by one stacked fused-leg V-cycle, with the iterate in double-single
     (~48-bit) precision and TRUE-residual replacement:
 
     - z = M^-1 r is ``vcycle_stk`` from zero (the same fused legs as
       ``mg_solve_ds``; falls back to ``vcycle_rp`` for non-stk configs);
-    - the curvature p.Ap comes from a dot-only matvec kernel
-      (``pallas2d.matvec_dot_rp``) that never materializes Ap;
+    - the curvature p.Ap comes from the cancellation-free gradient form
+      (dots='rowsum64', the default) or the plain interior dot
+      ``pallas2d.matvec_dot_rp``;
     - instead of the f32 recurrence r -= alpha*Ap (whose rounding floor
       eps*8|u|/h^2 sits far above tol*rms(f) on fine grids), each step
       folds alpha*p into the ds iterate and re-evaluates the residual at
-      ~48 bits in ONE fused HBM pass (``ds.defect_pass`` with
+      ~48 bits in ONE fused pass (``ds.defect_pass`` with
       scale = -alpha) — the returned norm is the true defect, so
       convergence is judged on exactly the same quantity as
       ``mg_solve_ds``;
@@ -177,18 +178,17 @@ def mg_pcg_ds(
     (multigrid.jl:91-170) — a configuration the reference benchmarks only
     as MG-alone vs CG-at-coarse-level (multigrid_bench.jl:27).
 
-    MEASURED VERDICT (v5e, DST-513/V(5,5) ladder, tol 1e-6 — see
-    mg_workprecision.csv and docs/part2.md): at k <= 12 this PCG matches
-    the f64 solver's iteration count (4 at 4097^2, same as ds-MG's outer
-    count) but pays ~40% per-iteration overhead for the dots/axpys
-    (k=12: 20.5 vs 14.8 ms device).  At k >= 13 Krylov acceleration
-    COLLAPSES (11 iters at 8193^2 vs the f64 solver's 3): the f32
-    V-cycle preconditioner evaluates its internal residuals at the
-    eps*8n^2/h^2 cancellation floor, so M becomes a noisy operator and
-    CG's two-term recurrence loses conjugacy — while defect-correction
-    MG is immune by construction (every outer consumes the TRUE ~48-bit
-    defect).  That noise-immunity is WHY the framework's production
-    solver is mg_solve_ds rather than PCG on TPU.
+    Iteration counts (DST-513/V(5,5) ladder, tol 1e-6, docs/part2.md): at
+    k <= 12 this PCG matches the f64 solver's count (4 at 4097^2, same as
+    ds-MG's outer count) but does more work per iteration for the
+    dots/axpys.  At k >= 13 Krylov acceleration COLLAPSES (11 iterations
+    at 8193^2 vs the f64 solver's 3): the f32 V-cycle preconditioner
+    evaluates its internal residuals at the eps*8n^2/h^2 cancellation
+    floor, so M becomes a noisy operator and CG's two-term recurrence
+    loses conjugacy — while defect-correction MG is immune by
+    construction (every outer consumes the TRUE ~48-bit defect).  That is
+    why the framework's production solver is mg_solve_ds rather than
+    PCG.
     """
     from fpr_tpu.ops import ds as dsm
     from fpr_tpu.ops import pallas2d
@@ -196,7 +196,7 @@ def mg_pcg_ds(
 
     f32 = jnp.float32
     ny, nx = f.shape
-    br = pallas2d._pick_br(ny, nx, 4)
+    br = pallas2d.layout_br(ny)
     total = pallas2d.padded_rows(ny, br)
     nxp = pallas2d.padded_cols(nx)
 
@@ -231,9 +231,8 @@ def mg_pcg_ds(
 
     def dot(a, b):
         """Interior dot of two rp planes, restricted to the physical rows
-        (the defect kernel never writes the top-PAD ghost rows of its r
-        output — unspecified on real TPUs, NaN in interpret mode, and
-        0 * garbage would poison a whole-array sum).
+        (the ghost rows are unspecified, and 0 * garbage would poison a
+        whole-array sum).
 
         The CG dots z.r and p.Ap carry heavy sign cancellation (z is a
         smoothed copy of a rough r; A is definite but the ELEMENTWISE
@@ -253,7 +252,7 @@ def mg_pcg_ds(
         """p.Ap without forming Ap.  Forming Ap = (sum of neighbors -
         C p)/h^2 pointwise on the SMOOTH search direction p cancels
         catastrophically in f32 (relative error ~ eps*8*n^2/pi^2 — order
-        ONE at k >= 11; measured: the kernel-dot PCG stalls at ~0.2
+        ONE at k >= 11; measured: the plain-dot PCG stalls at ~0.2
         contraction/iter on 2049^2+ while the f64 solver does 3 iters).
         The quadratic form has an exactly equivalent gradient form with
         only same-sign terms:

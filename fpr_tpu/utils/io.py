@@ -96,40 +96,6 @@ def append_csv_row(path, row: dict, key_fields=()) -> bool:
             fcntl.flock(f, fcntl.LOCK_UN)
 
 
-def update_csv_row(path, key: dict, updates: dict) -> bool:
-    """Update the first row matching all key fields, in place, under the
-    same exclusive lock as ``append_csv_row``.  New fields are added to
-    the header (older rows get the empty string).  Returns True if a row
-    was updated — the device-true timing refresh uses this to fill
-    ``device_s`` on rows whose wall-clock entry already exists."""
-    path = Path(path)
-    if not path.exists():
-        return False
-    with open(path, "r+", newline="") as f:
-        fcntl.flock(f, fcntl.LOCK_EX)
-        try:
-            rows = list(csv.DictReader(f))
-            f.seek(0)
-            header = next(csv.reader(f))
-            hit = False
-            for r in rows:
-                if all(r.get(k, "") == str(v) for k, v in key.items()):
-                    r.update({k: str(v) for k, v in updates.items()})
-                    hit = True
-                    break
-            if not hit:
-                return False
-            header = header + [k for k in updates if k not in header]
-            f.seek(0)
-            f.truncate()
-            writer = csv.DictWriter(f, fieldnames=header, restval="")
-            writer.writeheader()
-            writer.writerows(rows)
-            return True
-        finally:
-            fcntl.flock(f, fcntl.LOCK_UN)
-
-
 def csv_has_row(path, key: dict) -> bool:
     """True if a row matching all key fields already exists (check BEFORE
     running an expensive config — the resume-by-skip of

@@ -1,7 +1,7 @@
 """ctypes bindings to the native C++ runtime library (native/).
 
-Builds libfpr_native.so with make on first use (g++; no pybind11 in this
-environment, so plain C ABI + ctypes).  Everything has a pure-Python/numpy
+Builds libfpr_native.so with make on first use (g++, plain C ABI +
+ctypes; the library is not committed).  Everything has a pure-Python/numpy
 fallback, so the native library is an acceleration/validation layer, never
 a hard dependency.
 """
@@ -9,7 +9,9 @@ a hard dependency.
 from __future__ import annotations
 
 import ctypes
+import os
 import subprocess
+import uuid
 from pathlib import Path
 
 import numpy as np
@@ -27,9 +29,18 @@ def get_lib():
         return _lib
     try:
         if not _LIB_PATH.exists():
-            subprocess.run(
-                ["make", "-s"], cwd=_NATIVE_DIR, check=True, capture_output=True
-            )
+            # build under a unique name, then rename into place: several
+            # processes (test workers) may build at once, and none may load
+            # a half-written library
+            tmp = _NATIVE_DIR / f".build-{uuid.uuid4().hex}.so"
+            try:
+                subprocess.run(
+                    ["make", "-s", f"OUT={tmp.name}"], cwd=_NATIVE_DIR,
+                    check=True, capture_output=True,
+                )
+                os.replace(tmp, _LIB_PATH)
+            finally:
+                tmp.unlink(missing_ok=True)
         lib = ctypes.CDLL(str(_LIB_PATH))
         c_double_p = ctypes.POINTER(ctypes.c_double)
         c_int32_p = ctypes.POINTER(ctypes.c_int32)

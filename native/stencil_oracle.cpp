@@ -6,7 +6,7 @@
 //   - the 2D Poisson/Helmholtz residual and damped-Jacobi sweep,
 //   - one 3D pseudo-transient diffusion iteration,
 // written without any shared code with the JAX path, invoked via ctypes.
-// Agreement with the jnp/Pallas tiers at ~1e-15 is a strong independent
+// Agreement with the jnp/fused tiers at ~1e-15 is a strong independent
 // correctness signal (tests/test_native.py).
 
 #include <cstdint>

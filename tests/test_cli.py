@@ -5,9 +5,35 @@ scripts-part2/part2.jl argument handling); small shapes only — the heavy
 paths are covered by the model/solver tests.
 """
 
+import argparse
+
+import jax
 import pytest
 
 from fpr_tpu import cli
+
+
+@pytest.fixture(autouse=True)
+def _no_compile_cache(monkeypatch):
+    """cli.main enables the persistent compile cache; the tests must not."""
+    from fpr_tpu.utils import runtime
+
+    monkeypatch.setattr(runtime, "enable_compile_cache", lambda: None)
+
+
+def test_platform_flag_maps_gpu_to_cuda_and_cpu(monkeypatch):
+    p = argparse.ArgumentParser()
+    cli._add_common(p)
+    assert p.parse_args(["--platform", "gpu"]).platform == "gpu"
+    assert p.parse_args(["--platform", "cpu"]).platform == "cpu"
+    assert sorted(cli.PLATFORMS) == ["cpu", "gpu"]
+    with pytest.raises(SystemExit):
+        p.parse_args(["--platform", "xpu"])
+    seen = []
+    monkeypatch.setattr(jax.config, "update", lambda k, v: seen.append((k, v)))
+    cli._force_platform("gpu")
+    cli._force_platform(None)
+    assert seen == [("jax_platforms", "cuda,cpu")]
 
 
 def test_mg_ds_dst(capsys):

@@ -116,7 +116,7 @@ def test_diffusion_probe_value_128_matches_reference_anchor():
 
 def test_f32_matches_f64_iterations():
     # f32 storage must not change iterations-to-tolerance materially at
-    # bench tolerances (the TPU runs f32; SURVEY §7 risk item)
+    # bench tolerances (the benchmark runs f32; SURVEY §7 risk item)
     cfg = DiffusionConfig(nx=32, ny=32, nz=32, ttot=0.4, tol=1e-6, policy=ExecutionPolicy.JNP)
     o64 = diffusion3d.solve(cfg, dtype=jnp.float64)
     o32 = diffusion3d.solve(cfg, dtype=jnp.float32)

@@ -1,5 +1,5 @@
 """Distributed production-tier multigrid (fpr_tpu/solvers/dist_mg_ds.py):
-the sharded fused-kernel V-cycle must reproduce the single-device
+the sharded fused-leg V-cycle must reproduce the single-device
 mg_solve_ds solver on the 8-virtual-device CPU mesh."""
 
 import jax

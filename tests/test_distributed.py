@@ -6,10 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 from jax.sharding import PartitionSpec as P
-try:  # jax >= 0.8 top-level spelling; experimental alias is deprecated
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from fpr_tpu.core.config import DiffusionConfig, ExecutionPolicy
 from fpr_tpu.models import diffusion3d
@@ -90,10 +87,9 @@ def test_distributed_matches_single_device(mesh_shape, axes):
     ],
 )
 def test_distributed_pallas_policy_matches(mesh_shape, axes):
-    # the fused kernel inside shard_map (interpret mode on the virtual
-    # mesh; the TPU scaling experiment exercises the compiled variant) on
-    # 1D/2D/3D Cartesian decompositions — the ghost/tile-padded layout's
-    # y/x ghost blocks mirror the reference's 3D rank grid
+    # the fused step inside shard_map on 1D/2D/3D Cartesian
+    # decompositions — the padded layout's y/x ghost blocks mirror the
+    # reference's 3D rank grid
     # (part1_kernel_programming.jl:100-101)
     single = diffusion3d.solve(
         DiffusionConfig(nx=16, ny=16, nz=16, ttot=0.4, tol=1e-7,
@@ -120,8 +116,8 @@ def test_distributed_pallas_policy_matches(mesh_shape, axes):
 def test_overlap_comm_matches_plain(policy):
     # @hide_communication analog: interior-first compute with in-flight
     # ppermute must be numerically identical to the ghost-padded step —
-    # on the jnp tier AND the fused-Pallas tier (kernel over the shard
-    # interior, XLA edge-plane fixup from the fresh ghosts)
+    # on the jnp tier AND the fused tier (fused step over the shard
+    # interior, edge-plane fixup from the fresh ghosts)
     mesh = make_mesh((4,), ("z",))
     base = dict(nx=16, ny=16, nz=8, ttot=0.4, tol=1e-7, policy=policy)
     plain = dist_diffusion.solve_distributed(

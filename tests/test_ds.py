@@ -1,4 +1,4 @@
-"""Double-single (two-f32) arithmetic and the fused defect kernel
+"""Double-single (two-f32) arithmetic and the fused defect pass
 (fpr_tpu.ops.ds): error-free transforms, residual parity vs the f64
 oracle, and the all-f32 defect-correction solver."""
 
@@ -44,7 +44,7 @@ def test_defect_pass_matches_f64_residual(rng, shape, c):
     h = 1.0 / 64  # power-of-two 1/h^2 required
     u = jnp.asarray(rng.standard_normal(shape))
     f = jnp.asarray(rng.standard_normal(shape))
-    br = pallas2d._pick_br(ny, nx, 4)
+    br = pallas2d.layout_br(ny)
 
     def pack(a):
         hi, lo = dsm.to_ds(a)
@@ -87,8 +87,8 @@ def test_defect_pass_update(rng):
     e64[0] = e64[-1] = 0.0
     e64[:, 0] = e64[:, -1] = 0.0
     e = jnp.asarray(e64, jnp.float32)
-    scale = 0.375  # exactly representable in f32 (the kernel takes f32 scale)
-    br = pallas2d._pick_br(ny, nx, 4)
+    scale = 0.375  # exactly representable in f32 (the pass takes an f32 scale)
+    br = pallas2d.layout_br(ny)
 
     def pack(a):
         hi, lo = dsm.to_ds(a)
@@ -139,7 +139,7 @@ def test_mg_solve_ds_converges(rng, monkeypatch):
 
 
 def test_mg_solve_ds_with_bcs_matches_mixed(rng, monkeypatch):
-    """apply_bcs path (in-kernel NS temperature BCs) converges to the same
+    """apply_bcs path (NS temperature BCs in the defect pass) converges to the same
     BC-constrained solution as mg_solve_mixed — the NS T-solve shape."""
     monkeypatch.setattr(multigrid, "PALLAS_MIN_AREA", 65 * 65)
     ny, nx = 65, 257
@@ -184,7 +184,7 @@ def test_mg_solve_ds_traced_c_and_f_single(rng, monkeypatch):
 
     from fpr_tpu.ops import pallas2d
 
-    br = pallas2d._pick_br(ny, nx, 4)
+    br = pallas2d.layout_br(ny)
     f_ds = pallas2d.pad2d(b32, br)[None]  # (1, total, nxp) single-plane rhs
     f_rms = float(jnp.sqrt(jnp.mean(b * b)))
     u_ds, r_rms, it = multigrid.mg_solve_ds_rp(
@@ -239,7 +239,7 @@ def test_defect_pass_extras(rng):
     h = 1.0 / 64
     u = jnp.asarray(rng.standard_normal((ny, nx)))
     f = jnp.asarray(rng.standard_normal((ny, nx)))
-    br = pallas2d._pick_br(ny, nx, 4)
+    br = pallas2d.layout_br(ny)
 
     def pack(a):
         hi, lo = dsm.to_ds(a)

@@ -145,7 +145,7 @@ def test_matvec_dot_rp_matches_explicit(rng):
 
     ny, nx = 65, 129
     h = 1.0 / (ny - 1)
-    br = pallas2d._pick_br(ny, nx, 4)
+    br = pallas2d.layout_br(ny)
     x = np.zeros((ny, nx), np.float32)
     x[1:-1, 1:-1] = rng.random((ny - 2, nx - 2))
     x_rp = pallas2d.pad2d(jnp.asarray(x), br)

@@ -1,4 +1,4 @@
-"""Multigrid convergence tests — the TPU analog of the reference's
+"""Multigrid convergence tests — the analog of the reference's
 parameterized sweep (test/multigrid.jl:30-58): MG must reach
 r_rms < tol * rms(b) within 20 V-cycles for every config in
 {policy} x {coarse l} x {grid k} x {jacobi, CG coarse}."""
@@ -31,10 +31,8 @@ def _manufactured(n, h, c, rng):
 def test_mg_converges_within_20_vcycles(rng, k, l, coarse_solver, policy):
     """The reference's full 32-config matrix (test/multigrid.jl:30-58):
     {parallel, parallel_shmem} x l x k x {jacobi, CG} — here the two
-    execution policies are the jnp tier and the Pallas drop-ins
-    (interpreter mode on CPU; the k=9,10 Pallas cells cost ~35 s each —
-    almost all interpret-mode trace/compile — and are kept so all 32
-    reference configs EXECUTE, round-4 verdict item 5)."""
+    execution policies are the jnp tier and the fused-leg drop-ins, kept
+    so all 32 reference configs EXECUTE."""
     n = 2**k + 1
     h = 1.0 / (n - 1)
     c = 0.0
@@ -237,54 +235,9 @@ def test_mg_ds_warns_with_bc_hint(rng, capfd):
     assert "cold-BC stagnation" in out.out + out.err
 
 
-def test_fused_dst_corr_matches_unfused(rng):
-    """corr_from_res_ps == restrict_ps -> dst_solve(2h) -> x_interleave
-    on a fabricated parity-split residual, to f32 matmul-reassociation
-    level — including NaN-POISONED ghost/pad rows (the kernels leave
-    them unspecified; the fused chain must slice to the written block
-    rows, or 0-weight x NaN poisons the matmul — a real-TPU bug class
-    caught by this poisoning pattern, CLAUDE.md round 3)."""
-    from fpr_tpu.ops import pallas2d, transfer
-    from fpr_tpu.ops.pallas2d import PAD
-    from fpr_tpu.solvers import dst
-
-    ny, nx = 129, 513
-    h = 1.0 / (ny - 1)
-    br = pallas2d._pick_br(ny, nx, 4)
-    total = pallas2d.padded_rows(ny, br)
-    nxp = pallas2d.padded_cols(nx)
-    res = np.zeros((ny, nx), np.float32)
-    res[1:-1, 1:-1] = rng.random((ny - 2, nx - 2))
-    res_rp = np.asarray(pallas2d.pad2d(jnp.asarray(res), br))
-    nb = (total - 2 * PAD) // br
-    ps = res_rp.copy()
-    blk = res_rp[PAD : PAD + nb * br].reshape(nb, br, nxp)
-    ps[PAD : PAD + nb * br] = np.concatenate(
-        [blk[:, ::2], blk[:, 1::2]], axis=1
-    ).reshape(nb * br, nxp)
-    ps[:PAD] = np.nan          # poison the unspecified ghost rows
-    ps[PAD + nb * br :] = np.nan
-    ps = jnp.asarray(ps)
-
-    for c in (0.0, 37.5):
-        res_c = transfer.restrict_ps(
-            jnp.asarray(np.nan_to_num(np.asarray(ps))), ny, nx, br
-        )
-        u, _ = dst.dst_solve(jnp.zeros_like(res_c), res_c, 2 * h, c)
-        corrx = pallas2d.x_interleave_coarse(u)
-        rows_needed = pallas2d.corr_rows_needed(ny, br)
-        ref = np.zeros((rows_needed, nxp), np.float32)
-        ref[PAD : PAD + corrx.shape[0], :nx] = np.asarray(corrx)
-        fused = np.asarray(dst.corr_from_res_ps(ps, ny, nx, br, h, c))
-        assert np.isfinite(fused).all()
-        scale = np.abs(ref).max()
-        assert np.abs(fused - ref).max() / scale < 1e-5
-
-
 def test_mg_ds_fused_dst_large_anisotropic(rng):
-    """End-to-end through the FUSED branch (area >= PALLAS_MIN_AREA with
-    the child level at the coarse size — the NS production shape, where
-    the stk donation chain leaves stale pad rows in L's rhs plane)."""
+    """End-to-end through the fused legs with the child level at the DST
+    coarse size (area >= PALLAS_MIN_AREA) — the NS production shape."""
     from fpr_tpu.core.config import CoarseSolver as CS
 
     ny, nx = 513, 2049

@@ -13,9 +13,14 @@ from fpr_tpu.utils.io import load_fortran, save_fortran
 
 FIX = os.path.join(os.path.dirname(__file__), "fixtures")
 
-pytestmark = pytest.mark.skipif(
-    native.get_lib() is None, reason="native library unavailable (no g++?)"
-)
+@pytest.fixture(autouse=True)
+def lib():
+    """Build/load the library at run time (never while the module is
+    imported: every test worker must collect the same tests)."""
+    lib = native.get_lib()
+    if lib is None:
+        pytest.skip("native library unavailable (no g++?)")
+    return lib
 
 
 def test_native_io_matches_numpy(tmp_path, rng):

@@ -161,7 +161,7 @@ def test_simulate_fast_chunked_loop_matches_unchunked():
 
 def test_simulate_fast_resume_bitwise():
     """Checkpoint/resume mid-run: M steps + resume to N == N straight steps
-    BITWISE (the state payload carries the f32/ds state, the in-kernel
+    BITWISE (the state payload carries the f32/ds state, the carried
     w_sumsq accumulator, and the ds sim-time pair verbatim)."""
     from fpr_tpu.models.navier_stokes import simulate_fast
     from fpr_tpu.utils import checkpoint
@@ -257,10 +257,9 @@ def test_fast_mg_default_clamped_grid_shards():
 def test_simulate_fast_s_tol_factor_preserves_observables():
     """Relaxing the S-solve tolerance (s_tol_factor) must not change the
     step count / dt sequence and must keep fields within the solve
-    tolerance of the reference-semantics run.  (TPU-measured at 2049x513:
-    exact 8736-step parity and <1e-6 relative field drift up to factor
-    100 — benchmark-results/ns_s_tol_factor.json; this is the small-grid
-    CPU witness of the same contract.)"""
+    tolerance of the reference-semantics run.  (At 2049x513 the bench's
+    relaxed-S row checks the same step parity; this is the small-grid
+    CPU witness of the contract.)"""
     import dataclasses
 
     from fpr_tpu.models.navier_stokes import simulate_fast

@@ -1,5 +1,5 @@
 """Algebraic unit tests of the 2D stencil operators against the sparse
-oracle — the TPU analog of the reference's SparseArrays-based tests
+oracle — the analog of the reference's SparseArrays-based tests
 (test/multigrid.jl:102-138, test/krylov.jl)."""
 
 import jax.numpy as jnp

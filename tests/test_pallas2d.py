@@ -1,5 +1,5 @@
-"""Pallas 2D fused smoother/residual/matvec parity (interpreter mode, f64)
-and the row-padded V-cycle + mixed-precision defect-correction solvers."""
+"""Fused 2D smoother/residual/matvec parity (f64) and the row-padded
+V-cycle + mixed-precision defect-correction solvers."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -35,7 +35,7 @@ def test_kernels_match_jnp(rng, shape, c):
 
 def test_pad_roundtrip(rng):
     a = jnp.asarray(rng.random((33, 129)))
-    br = pallas2d._pick_br(33, 129, 8)
+    br = pallas2d.layout_br(33)
     np.testing.assert_array_equal(
         np.asarray(pallas2d.unpad2d(pallas2d.pad2d(a, br), 33, 129)), np.asarray(a)
     )
@@ -48,7 +48,7 @@ def test_fused_legs_match_composition(rng):
 
     for (ny, nx), bcs in [((33, 129), False), ((65, 257), True)]:
         nyc, nxc = (ny - 1) // 2 + 1, (nx - 1) // 2 + 1
-        br = pallas2d._pick_br(ny, nx, 8)
+        br = pallas2d.layout_br(ny)
         u = pallas2d.pad2d(jnp.asarray(rng.random((ny, nx))), br)
         f = pallas2d.pad2d(jnp.asarray(rng.random((ny, nx))), br)
         corr = jnp.asarray(rng.random((nyc, nxc)))
@@ -123,7 +123,7 @@ def test_rp_vcycle_matches_jnp_vcycle(rng, monkeypatch):
 
 
 def test_mixed_precision_defect_correction(rng, monkeypatch):
-    # f64 storage + f32 Pallas inner V-cycles converges to the f64 answer
+    # f64 storage + f32 fused inner V-cycles converges to the f64 answer
     monkeypatch.setattr(multigrid, "PALLAS_MIN_AREA", 65 * 65)
     n = 129
     h = 1.0 / (n - 1)
@@ -161,9 +161,9 @@ def test_elim_bc_smoothing_cuts_apply_bcs_outers(rng, monkeypatch):
     """Eliminated-BC smoothing (the round-5 apply_bcs preconditioner): the
     correction cycles copy the Neumann side columns after every sweep, so
     the BC contraction penalty vanishes — same converged solution, far
-    fewer outer defect iterations (the NS semi T-solve measured 16 -> 10
-    on TPU under the production DST-257 ladder, 16 -> 7 in the
-    full-recursion CPU probe; this is the CPU witness)."""
+    fewer outer defect iterations (the NS semi T-solve took 16 -> 10
+    under the production DST-257 ladder, 16 -> 7 in the full-recursion
+    CPU probe; this is the CPU witness)."""
     monkeypatch.setattr(multigrid, "PALLAS_MIN_AREA", 65 * 65)
     ny, nx = 65, 257
     h = 1.0 / (ny - 1)
@@ -190,9 +190,9 @@ def test_elim_bc_smoothing_cuts_apply_bcs_outers(rng, monkeypatch):
 
 
 def test_stk_legs_match_split_kernels(rng):
-    # the stacked-aliased legs (smooth2r_stk / corr_smooth2_stk) must be
-    # bitwise-identical to the separate-stream kernels on the physical
-    # interior (ghost/pad rows are uninitialized by contract); multi-block
+    # the stacked legs (smooth2r_stk / corr_smooth2_stk) must be
+    # bitwise-identical to the separate-operand legs on the physical
+    # interior (ghost/pad rows are unspecified by contract); multi-block
     from fpr_tpu.ops import transfer
 
     ny, nx = 257, 129
@@ -240,7 +240,7 @@ def test_vcycle_stk_matches_vcycle_rp(rng, monkeypatch):
     h = 1.0 / (n - 1)
     cfg = MGConfig(coarse_size=17)
     f = jnp.asarray(rng.random((n, n)))
-    br = pallas2d._pick_br(n, n, 8)
+    br = pallas2d.layout_br(n)
     total = pallas2d.padded_rows(n, br)
     nxp = pallas2d.padded_cols(n)
     f_rp = pallas2d.pad2d(f, br)
@@ -260,16 +260,14 @@ def test_vcycle_stk_matches_vcycle_rp(rng, monkeypatch):
 
 
 def test_vcycle_stk_handoff_ignores_stale_plane0(rng):
-    # on a real TPU the ds defect kernel donates its correction input and
-    # leaves the output's plane 0 UNSPECIFIED (stale previous correction);
-    # the small-grid jnp handoff with assume_zero_u must not read it.
-    # Simulate the staleness by poisoning plane 0 (CPU/interpret runs
-    # happen to get zeros, which is why value tests alone can't catch it).
+    # the ds defect pass leaves the output's plane 0 UNSPECIFIED (the stale
+    # previous correction); the small-grid jnp handoff with assume_zero_u
+    # must not read it.  Simulate the staleness by poisoning plane 0.
     n = 129  # default PALLAS_MIN_AREA -> whole solve is the handoff branch
     h = 1.0 / (n - 1)
     cfg = MGConfig(coarse_size=17)
     f = jnp.asarray(rng.random((n, n)))
-    br = pallas2d._pick_br(n, n, 8)
+    br = pallas2d.layout_br(n)
     total = pallas2d.padded_rows(n, br)
     nxp = pallas2d.padded_cols(n)
     I = lambda a: np.asarray(pallas2d.unpad2d(a, n, n))
@@ -288,7 +286,7 @@ def test_vcycle_stk_handoff_ignores_stale_plane0(rng):
 
 @pytest.mark.parametrize("ns", [1, 3])
 def test_stk_legs_deep_smoothing(rng, ns):
-    # the fused stk legs take the smooth count as a parameter: ns sweeps
+    # the fused legs take the smooth count as a parameter: ns sweeps
     # must equal ns composed smooth_rp calls (+ residual / + correction),
     # with the SAME r_rms estimate semantics (residual feeding the last
     # smooth) at every depth
@@ -316,7 +314,7 @@ def test_stk_legs_deep_smoothing(rng, ns):
         np.asarray(transfer.restrict(pallas2d.unpad2d(res, ny, nx))),
         atol=1e-14,
     )
-    # the separate-stream (sharded-tier) kernel at the same depth is
+    # the separate-operand (sharded-tier) leg at the same depth is
     # bitwise-equal to the stk leg
     u1s, res_ps_s = pallas2d.smooth2r_split_rp(
         u_rp, f_rp, ny, nx, br, h, c, ns=ns
@@ -365,7 +363,7 @@ def test_vcycle_stk_deep_smoothing_matches_vcycle_rp(rng, monkeypatch):
     cfg = MGConfig(coarse_size=17, pre_smooth=3, post_smooth=3)
     assert multigrid._stk_eligible(cfg)
     f = jnp.asarray(rng.random((n, n)))
-    br = pallas2d._pick_br(n, n, 8)
+    br = pallas2d.layout_br(n)
     total = pallas2d.padded_rows(n, br)
     nxp = pallas2d.padded_cols(n)
     f_rp = pallas2d.pad2d(f, br)

@@ -1,6 +1,6 @@
-"""Fused NS operator kernel parity vs the jnp tier (interpret mode, f64).
+"""Fused NS operator pass parity vs the jnp tier (f64).
 
-The kernel must reproduce, bit-near-exactly, the jnp composition used by
+The pass must reproduce, bit-near-exactly, the jnp composition used by
 ns_step (fpr_tpu/models/navier_stokes.py): BCs on T, velocity from S,
 buoyancy, diffusion, upwind advection, and the explicit update or the
 semi-implicit rhs build (reference part2.jl:90-137, 199-230).
@@ -57,7 +57,7 @@ def test_fused_matches_jnp(rng, shape, mode, beta):
 
     T_ref, W_ref = _jnp_reference(T, W, S, h, Pr, Ra, k, beta, dt, mode, cT, cW)
 
-    br = pallas2d._pick_br(ny, nx, 8)
+    br = pallas2d.layout_br(ny)
     tw = jnp.stack([pallas2d.pad2d(T, br), pallas2d.pad2d(W, br)])
     s_rp = pallas2d.pad2d(S, br)
     out = pallas_ns.ns_fused_rp(
@@ -71,9 +71,9 @@ def test_fused_matches_jnp(rng, shape, mode, beta):
     np.testing.assert_allclose(T_got, np.asarray(T_ref), atol=1e-13 * scale, rtol=1e-12)
     np.testing.assert_allclose(W_got, np.asarray(W_ref), atol=1e-13 * scale, rtol=1e-12)
 
-    # within the written block rows, everything outside the physical domain
-    # must be zero (the top/bottom PAD rows are never DMA'd and stay
-    # unspecified, like every other rp kernel — consumers slice or mask)
+    # within the block rows, everything outside the physical domain must be
+    # zero (the top/bottom PAD ghost rows are unspecified, like every other
+    # rp output — consumers slice or mask)
     total, nxp = out[0].shape
     written = np.zeros((total, nxp), bool)
     written[pallas2d.PAD : total - pallas2d.PAD, :] = True
@@ -83,13 +83,13 @@ def test_fused_matches_jnp(rng, shape, mode, beta):
 
 
 def test_fused_f32_runs(rng):
-    # the TPU production dtype path (still interpret mode on CPU)
+    # the production dtype path
     ny, nx = 33, 129
     h = 1.0 / (ny - 1)
     T = jnp.asarray(rng.random((ny, nx)), jnp.float32)
     W = jnp.asarray(rng.random((ny, nx)), jnp.float32)
     S = jnp.asarray(rng.random((ny, nx)), jnp.float32)
-    br = pallas2d._pick_br(ny, nx, 4)
+    br = pallas2d.layout_br(ny)
     tw = jnp.stack([pallas2d.pad2d(T, br), pallas2d.pad2d(W, br)])
     out = pallas_ns.ns_fused_rp(
         tw, pallas2d.pad2d(S, br), 1e-5, ny, nx, br, h, 0.1, 1e6
@@ -108,14 +108,14 @@ def test_with_defect_matches_separate_passes(rng):
     """with_defect must equal the separate operator + ds.defect_pass pair
     bitwise on the physical domain: same T'/W', same r32 = A S - W' (ds
     residual arithmetic), same r_rms and curl-maxima extras.  This is the
-    contract the explicit fast loop relies on (the operator kernel of step
+    contract the explicit fast loop relies on (the operator pass of step
     n produces step n+1's warm-S-solve inputs)."""
     from fpr_tpu.ops import ds as dsm
 
     ny, nx = 65, 257
     h = 1.0 / (ny - 1)
     f32 = jnp.float32
-    br = pallas2d._pick_br(ny, nx, 4)
+    br = pallas2d.layout_br(ny)
     T = jnp.asarray(rng.standard_normal((ny, nx)), f32)
     W = jnp.asarray(rng.standard_normal((ny, nx)), f32)
     Sh = jnp.asarray(rng.standard_normal((ny, nx)), f32)
@@ -149,60 +149,3 @@ def test_with_defect_matches_separate_passes(rng):
     assert float(rrms_ref) == float(rrms_f)
     assert float(ex_ref[0]) == float(ex_f[0])
     assert float(ex_ref[1]) == float(ex_f[1])
-
-
-def test_with_helm_defect_matches_separate_passes(rng):
-    """with_helm_defect (rhs mode) must equal the separate rhs-kernel +
-    two ds.defect_pass calls bitwise: same T_rhs/W_rhs and sumsqs, same
-    rT = A_cT BC(T) - T_rhs (the T pass runs apply_bcs=True on the (T,0)
-    warm start) and rW = A_cW W - W_rhs, same r_rms values.  (The fast
-    loop does not use this mode — measured ~3% slower end-to-end, see
-    CLAUDE.md — but the capability is kept and must stay bitwise.)"""
-    from fpr_tpu.ops import ds as dsm
-
-    ny, nx = 65, 257
-    h = 1.0 / (ny - 1)
-    f32 = jnp.float32
-    br = pallas2d._pick_br(ny, nx, 4)
-    T = jnp.asarray(rng.standard_normal((ny, nx)), f32)
-    W = jnp.asarray(rng.standard_normal((ny, nx)), f32)
-    S = jnp.asarray(rng.standard_normal((ny, nx)), f32)
-    TW = jnp.stack([pallas2d.pad2d(T, br), pallas2d.pad2d(W, br)])
-    S_rp = pallas2d.pad2d(S, br)
-    dt = jnp.asarray(1e-4, f32)
-    beta = 0.5
-    cT = 1.0 / (jnp.asarray(beta, f32) * dt)
-    cW = cT / jnp.asarray(0.01, f32)
-
-    rhs_ref, (tss_ref, wss_ref) = pallas_ns.ns_fused_rp(
-        TW, S_rp, dt, ny, nx, br, h, 0.01, 1e6,
-        mode="rhs", beta=beta, cT=cT, cW=cW, with_sumsq=True,
-    )
-    zeros = jnp.zeros_like(TW[0])
-    _, rT_ref, rTrms_ref = dsm.defect_pass(
-        jnp.stack([TW[0], zeros]), rhs_ref[0:1], zeros, 0.0,
-        ny, nx, br, h, cT, apply_bcs=True,
-    )
-    _, rW_ref, rWrms_ref = dsm.defect_pass(
-        jnp.stack([TW[1], zeros]), rhs_ref[1:2], zeros, 0.0,
-        ny, nx, br, h, cW,
-    )
-
-    out_f, (tss_f, wss_f), (rT_f, rTrms_f), (rW_f, rWrms_f) = (
-        pallas_ns.ns_fused_rp(
-            TW, S_rp, dt, ny, nx, br, h, 0.01, 1e6,
-            mode="rhs", beta=beta, cT=cT, cW=cW, with_helm_defect=True,
-        )
-    )
-
-    PAD = pallas2d.PAD
-    phys = np.s_[PAD : PAD + ny, :nx]
-    assert np.array_equal(
-        np.asarray(rhs_ref[:, *phys]), np.asarray(out_f[:, *phys])
-    )
-    assert float(tss_ref) == float(tss_f)
-    assert float(wss_ref) == float(wss_f)
-    assert np.array_equal(np.asarray(rT_ref[phys]), np.asarray(rT_f[phys]))
-    assert np.array_equal(np.asarray(rW_ref[phys]), np.asarray(rW_f[phys]))
-    assert float(rTrms_ref) == float(rTrms_f)
-    assert float(rWrms_ref) == float(rWrms_f)
